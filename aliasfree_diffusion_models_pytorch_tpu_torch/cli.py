@@ -1,24 +1,26 @@
-"""Command-line interface of the port: ``sample`` and ``summary``.
+"""Command-line interface of the port: ``train``, ``sample`` and ``summary``.
 
+    python -m aliasfree_diffusion_models_pytorch_tpu_torch train --epochs 100 --batch-size 256
     python -m aliasfree_diffusion_models_pytorch_tpu_torch sample --n 16 --out samples.png
     python -m aliasfree_diffusion_models_pytorch_tpu_torch sample --ddim-steps 50 --theta 90
     python -m aliasfree_diffusion_models_pytorch_tpu_torch summary --variant 3
 
-The model and sampler flags are the JAX CLI's (``cli.py:_add_common``); the
-defaults are the serving configuration: Config D (variant 3) at 32 px, three
-channels, bf16. Weights come from the run's JAX ``.npz`` checkpoint
-(``models/<run_name>/ckpt_<dataset>_<variant>.npz`` under ``--root``) or,
-with ``--random-weights``, from a seeded torch-default initialisation.
-``--device`` picks the card (default ``cuda``) or ``cpu``.
+The flags are the JAX CLI's (``cli.py:_add_common``); the model defaults are
+Config D (variant 3) at 32 px, three channels, bf16. ``train`` writes the
+run's ``.npz`` checkpoint (``models/<run_name>/ckpt_<dataset>_<variant>.npz``
+under ``--root``), in the JAX package's layout; with no ``--dataset-path`` it
+trains on the synthetic dataset. ``sample`` reads that checkpoint (or one
+written by the JAX package) or, with ``--random-weights``, draws a seeded
+torch-default initialisation. ``--device`` picks the card (default ``cuda``)
+or ``cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
+import logging
 import math
-import os
 import sys
 
 import numpy as np
@@ -49,6 +51,43 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
 
 
+def _add_train(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--dataset-path", default=None,
+                   help="MNIST CSV file; absent -> the synthetic dataset")
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the run checkpoint if present")
+    p.add_argument("--image-gen-per-epoch", type=int, default=4)
+    p.add_argument("--gen-per-batch", type=int, default=200)
+    p.add_argument("--gen-total", type=int, default=2000)
+    p.add_argument("--label-dropout", type=float, default=0.0,
+                   help="CFG training: per-sample label-drop probability (~0.1)")
+    p.add_argument("--lr-schedule", default="constant",
+                   choices=["constant", "warmup_cosine"],
+                   help="constant (reference) | linear warmup + cosine decay")
+    p.add_argument("--warmup-steps", type=int, default=0,
+                   help="linear-warmup optimizer updates (warmup_cosine only)")
+    p.add_argument("--lr-min-ratio", type=float, default=0.0,
+                   help="cosine floor as a fraction of peak lr")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="micro-batches averaged per optimizer update "
+                        "(effective batch = k * batch-size)")
+    p.add_argument("--grad-clip", type=float, default=None,
+                   help="global-norm gradient clipping threshold")
+
+
+# TrainConfig field -> argparse attribute of the train subcommand
+_TRAIN_FIELDS = {
+    "epochs": "epochs", "batch_size": "batch_size", "dataset_path": "dataset_path",
+    "lr": "lr", "image_gen_n": "image_gen_per_epoch", "gen_per_batch": "gen_per_batch",
+    "gen_total": "gen_total", "label_dropout": "label_dropout",
+    "lr_schedule": "lr_schedule", "warmup_steps": "warmup_steps",
+    "lr_min_ratio": "lr_min_ratio", "grad_accum": "grad_accum", "grad_clip": "grad_clip",
+}
+
+
 def config_from_args(args) -> TrainConfig:
     filters = None
     if args.f_kernel is not None or args.variant != 0:
@@ -72,19 +111,24 @@ def config_from_args(args) -> TrainConfig:
         compute_dtype=args.compute_dtype,
         use_ema=args.use_ema,
         num_classes=args.num_classes,
+        # the train subcommand's flags; the other subcommands keep the defaults
+        **{field: getattr(args, flag) for field, flag in _TRAIN_FIELDS.items()
+           if hasattr(args, flag)},
     )
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="aliasfree-diffusion-torch",
-        description="Alias-free diffusion sampling on PyTorch/CUDA",
+        description="Alias-free diffusion training and sampling on PyTorch/CUDA",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
+    train = sub.add_parser("train", help="training only")
     sample = sub.add_parser("sample", help="generate images")
     summary = sub.add_parser("summary", help="model inspection: param count + per-layer shapes")
-    for p in (sample, summary):
+    for p in (train, sample, summary):
         _add_common(p)
+    _add_train(train)
     sample.add_argument("--n", type=int, default=16)
     sample.add_argument("--out", default="samples.png")
     sample.add_argument("--ddim-steps", type=int, default=None,
@@ -101,25 +145,12 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _recover_base_width(config: TrainConfig, root: str) -> TrainConfig:
-    """The checkpoint's weights fix the width: take ``base_width`` from the
-    ``config.json`` the JAX trainer keeps beside the checkpoint, if any."""
-    cfg_path = os.path.join(config.model_dir(root), "config.json")
-    if not os.path.exists(cfg_path):
-        return config
-    with open(cfg_path) as f:
-        stored = json.load(f)
-    if "base_width" not in stored:
-        return config
-    width = stored["base_width"]
-    return dataclasses.replace(config, base_width=None if width is None else int(width))
-
-
 def run_sample(args) -> np.ndarray:
     """The ``sample`` subcommand: returns the final uint8 (n, H, W, C) batch
     and writes its grid to ``args.out``."""
     from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
     from aliasfree_diffusion_models_pytorch_tpu_torch.models.unet import build_model
+    from aliasfree_diffusion_models_pytorch_tpu_torch.train import recover_base_width
     from aliasfree_diffusion_models_pytorch_tpu_torch.utils.io import save_image_grid
     from aliasfree_diffusion_models_pytorch_tpu_torch.utils.weights import (
         init_params,
@@ -130,7 +161,7 @@ def run_sample(args) -> np.ndarray:
     if args.random_weights:
         state = init_params(config, config.seed)
     else:
-        config = _recover_base_width(config, args.root)
+        config = recover_base_width(config, args.root)
         state = load_jax_npz(config.checkpoint_path(args.root), ema=config.use_ema)
     device = torch.device(args.device)
     model = build_model(config, device=device, state_dict=state)
@@ -149,15 +180,38 @@ def run_sample(args) -> np.ndarray:
     return final
 
 
+def run_train(args) -> list[float]:
+    """The ``train`` subcommand: returns the per-epoch mean losses."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.data import get_data
+    from aliasfree_diffusion_models_pytorch_tpu_torch.train import train
+
+    config = config_from_args(args)
+    dl, _ = get_data(
+        config.dataset, config.dataset_path, config.image_size, config.batch_size,
+        image_channels=config.image_channels, seed=config.seed, synthetic_fallback=True,
+    )
+    return train(config, dl, root=args.root, device=args.device, resume=args.resume)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    # train narrates its progress through logging.info; the root stays at WARNING.
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s",
+                        datefmt="%H:%M:%S")
+    logging.getLogger().setLevel(logging.WARNING)
+    logging.getLogger(__package__).setLevel(logging.INFO)
     if args.cmd == "summary":
         from aliasfree_diffusion_models_pytorch_tpu_torch.models.unet import (
             build_model,
             model_summary,
         )
 
-        print(model_summary(build_model(config_from_args(args), device="cpu")))
+        # On the meta device: shapes and counts only, no weights are allocated.
+        print(model_summary(build_model(config_from_args(args), device="meta")))
+        return 0
+    if args.cmd == "train":
+        losses = run_train(args)
+        print(json.dumps({"final_loss": losses[-1] if losses else None}))
         return 0
     if args.cmd == "sample":
         run_sample(args)

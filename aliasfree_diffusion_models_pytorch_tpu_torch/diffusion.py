@@ -59,15 +59,26 @@ class Diffusion:
         self.beta = torch.linspace(beta_start, beta_end, noise_steps, dtype=torch.float32)
         self.alpha = 1.0 - self.beta
         self.alpha_hat = torch.cumprod(self.alpha, dim=0)
+        self._alpha_hat_dev = self.alpha_hat  # copy on the device last noised on
 
     # ------------------------------------------------------------------
     # Forward process
     # ------------------------------------------------------------------
 
-    def noise_images(self, x: torch.Tensor, t: torch.Tensor, generator=None):
-        """q(x_t | x_0): returns (x_t, eps). x is NHWC in [-1, 1]."""
-        ah = self.alpha_hat.to(x.device)[t]
-        eps = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    def sample_timesteps(self, n: int, generator=None) -> torch.Tensor:
+        """Uniform t in [1, noise_steps): t = 0 is never trained."""
+        return torch.randint(1, self.noise_steps, (n,), generator=generator,
+                             device=self.device)
+
+    def noise_images(self, x: torch.Tensor, t: torch.Tensor, generator=None, noise=None):
+        """q(x_t | x_0): returns (x_t, eps). x is NHWC in [-1, 1]. ``noise``,
+        when given, is used as eps instead of a draw from ``generator``."""
+        if self._alpha_hat_dev.device != x.device:
+            self._alpha_hat_dev = self.alpha_hat.to(x.device)
+        ah = self._alpha_hat_dev[t]
+        eps = noise
+        if eps is None:
+            eps = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
         return (torch.sqrt(ah)[:, None, None, None] * x
                 + torch.sqrt(1.0 - ah)[:, None, None, None] * eps), eps
 

@@ -35,7 +35,7 @@ from torch import nn
 
 from aliasfree_diffusion_models_pytorch_tpu_torch.config import FilterSettings
 from aliasfree_diffusion_models_pytorch_tpu_torch.ops.filters import circular_lowpass_kernel
-from aliasfree_diffusion_models_pytorch_tpu_torch.ops.flash_attention import flash_attention_fwd
+from aliasfree_diffusion_models_pytorch_tpu_torch.ops.flash_attention import flash_mha
 from aliasfree_diffusion_models_pytorch_tpu_torch.ops.resample import (
     downsample2x,
     filtered_gelu,
@@ -215,8 +215,8 @@ class SelfAttention(nn.Module):
     (residual). One ``Linear(c, 3c)`` projects q, k and v (torch
     ``nn.MultiheadAttention``'s packed layout, xavier init, zero bias); the
     out-projection bias is zero at init. Every call goes through
-    :func:`flash_attention_fwd`: the CUDA kernel on the card, its plain
-    version on the CPU.
+    :func:`flash_mha`: the CUDA kernels on the card (forward, and backward
+    under autograd), their plain versions on the CPU.
     """
 
     def __init__(self, channels: int, num_heads: int = 4):
@@ -239,7 +239,7 @@ class SelfAttention(nn.Module):
         qkv = self.qkv(self.ln(tokens))
         # (n, S, 3, heads, D) → (3, n, heads, S, D): q, k, v each contiguous.
         q, k, v = qkv.reshape(n, s, 3, heads, head_dim).permute(2, 0, 3, 1, 4).contiguous()
-        attn = flash_attention_fwd(q, k, v, 1.0 / math.sqrt(head_dim))
+        attn = flash_mha(q, k, v, 1.0 / math.sqrt(head_dim))
         attn = attn.transpose(1, 2).reshape(n, s, c)
         tokens = self.out(attn) + tokens
         ff = self.ff2(gelu_exact(self.ff1(self.ff_ln(tokens))))

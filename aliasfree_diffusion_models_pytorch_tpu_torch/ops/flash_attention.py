@@ -1,22 +1,32 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers, their plain versions and the
+differentiable :func:`flash_mha`.
 
 Counterpart of ``aliasfree_diffusion_models_pytorch_tpu/ops/flash_attention.py``
 (``attention_reference`` :65-75, ``_fwd_kernel`` :126-163, ``_flash_fwd``
-:395-444, ``flash_mha`` :506-516). Sampling never differentiates, so only the
-forward is ported here, in the TPU kernel's "fold" mode:
+:395-444, ``_bwd_kernel`` :166-254, ``_bwd_kernel_strips`` :269-338,
+``flash_mha`` with its custom vjp :506-532). The forward runs in the TPU
+kernel's "fold" mode:
 
     logits = q·kᵀ·scale (f32);  m = max_j logits;  p = exp(logits − m);
     Σ = Σ_j p;  out = (p cast to the input dtype)·v, accumulated in f32, / Σ
 
-and its "stats" mode, which also returns m and Σ as (B·H, 1, S) f32 arrays
-for the backward of the training slice.
+or its "stats" mode, which also returns m and Σ as (B·H, 1, S) f32 arrays.
+The backward recomputes p from the saved m and never holds an S×S array in
+device memory:
 
-* :func:`attention_reference` is the plain PyTorch version of those steps.
-  The CPU takes it; on the card it is only the yardstick the kernel is
-  checked against.
-* :func:`flash_attention_fwd` is the wrapper: a CPU tensor takes the plain
-  version, a CUDA tensor launches ``csrc/flash_fwd.cu`` or raises. Its
-  ``launches`` attribute counts kernel launches.
+    P = p cast to the input dtype (unnormalised);  δ = rowsum(g ⊙ out) (f32);
+    dV = Pᵀ·(g/Σ);  dP = g·vᵀ;  dS = P ⊙ ((dP − δ)/Σ) cast to the input dtype;
+    dQ = dS·k·scale;  dK = dSᵀ·q·scale     (all products accumulate in f32)
+
+* :func:`attention_reference` and :func:`attention_backward_reference` are
+  the plain PyTorch versions of those steps. The CPU takes them; on the card
+  they are only the yardsticks the kernels are checked against.
+* :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the
+  wrappers: a CPU tensor takes the plain version, a CUDA tensor launches
+  ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu`` or raises. Each wrapper's
+  ``launches`` attribute counts its kernel launches.
+* :func:`flash_mha` ties them into a ``torch.autograd.Function``: stats-mode
+  forward when a gradient is needed, fold-mode forward otherwise.
 """
 
 from __future__ import annotations
@@ -29,7 +39,8 @@ import torch
 
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
 
-__all__ = ["attention_reference", "flash_attention_fwd", "HEAD_DIMS"]
+__all__ = ["attention_reference", "attention_backward_reference", "flash_attention_fwd",
+           "flash_attention_bwd", "flash_mha", "HEAD_DIMS"]
 
 HEAD_DIMS = (8, 16, 32, 64)  # the kernel's template instantiations
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -58,14 +69,48 @@ def attention_reference(q, k, v, scale=None, with_stats=False):
     return out, m.reshape(b * h, 1, s), ssum.reshape(b * h, 1, s)
 
 
+def attention_backward_reference(q, k, v, out, m, ssum, g, scale=None):
+    """(dq, dk, dv) of ``out = softmax(q·kᵀ·scale)·v`` for the cotangent ``g``,
+    (B, H, S, D) layout, in the backward kernel's steps (see the module
+    docstring): explicit formulas and rounding points, not autograd.
+
+    ``m`` and ``ssum`` are the forward's stats as (B·H, 1, S) f32. With both
+    ``None`` they are recomputed here from the logits (local max and sum),
+    and the same steps follow.
+    """
+    b, h, s, _ = q.shape
+    dt = q.dtype
+    scale = _default_scale(q, scale)
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if m is None:
+        m = logits.amax(dim=-1, keepdim=True)
+        ssum = torch.exp(logits - m).sum(dim=-1, keepdim=True)
+    else:
+        m, ssum = m.reshape(b, h, s, 1), ssum.reshape(b, h, s, 1)
+    inv = 1.0 / ssum
+    p = torch.exp(logits - m).to(dt).float()  # unnormalised, in the input dtype
+    dv = torch.matmul(p.transpose(-1, -2), gf * inv)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    delta = (gf * out.float()).sum(dim=-1, keepdim=True)
+    ds = (p * ((dp - delta) * inv)).to(dt).float()
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = kernels.load("flash_fwd")
-    vp = ctypes.c_void_p
-    lib.afdm_flash_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_int, ctypes.c_float, ctypes.c_int, vp]
-    lib.afdm_flash_fwd.restype = ctypes.c_int
-    lib.afdm_cuda_error_string.argtypes = [ctypes.c_int]
+def _lib(name: str) -> ctypes.CDLL:
+    """The kernel's library with its C signatures declared."""
+    lib = kernels.load(name)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    if name == "flash_fwd":
+        lib.afdm_flash_fwd.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_float, ci, vp]
+        lib.afdm_flash_fwd.restype = ci
+    else:
+        lib.afdm_flash_bwd.argtypes = [vp] * 11 + [ci, ci, ci, ctypes.c_float, ci, vp]
+        lib.afdm_flash_bwd.restype = ci
+    lib.afdm_cuda_error_string.argtypes = [ci]
     lib.afdm_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -109,7 +154,7 @@ def flash_attention_fwd(q, k, v, scale=None, with_stats=False):
     if with_stats:
         m = torch.empty((b * h, 1, s), dtype=torch.float32, device=q.device)
         ssum = torch.empty_like(m)
-    lib = _lib()
+    lib = _lib("flash_fwd")
     with torch.cuda.device(q.device):  # a no-op when q is on the current device
         err = lib.afdm_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -126,3 +171,102 @@ def flash_attention_fwd(q, k, v, scale=None, with_stats=False):
 
 
 flash_attention_fwd.launches = 0
+
+
+def _check_bwd(q, k, v, out, m, ssum, g) -> None:
+    _check(q, k, v)
+    for name, t in (("out", out), ("g", g)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"{name} must match q in shape, dtype and device: "
+                f"{tuple(t.shape)} {t.dtype} {t.device} vs "
+                f"{tuple(q.shape)} {q.dtype} {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    stats_shape = (q.shape[0] * q.shape[1], 1, q.shape[2])
+    for name, t in (("m", m), ("ssum", ssum)):
+        if (tuple(t.shape) != stats_shape or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous float32 {stats_shape} tensor on {q.device}, "
+                f"got {tuple(t.shape)} {t.dtype} {t.device}")
+
+
+def flash_attention_bwd(q, k, v, out, m, ssum, g, scale=None):
+    """Attention backward: ``(dq, dk, dv)`` for the cotangent ``g`` of ``out``.
+
+    ``m`` and ``ssum`` are the stats of the stats-mode forward, or both
+    ``None``: then they are recomputed first (on the card by one stats-mode
+    launch of the forward kernel) and the same backward follows. CPU tensors
+    take :func:`attention_backward_reference`. CUDA tensors launch the
+    hand-written kernel on the current stream; anything it cannot take
+    raises. A non-contiguous ``g`` is made contiguous here.
+    """
+    if (m is None) != (ssum is None):
+        raise ValueError("m and ssum come together: pass both or neither")
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, out, m, ssum, g, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, got {q.device}")
+    g = g.contiguous()
+    scale = _default_scale(q, scale)
+    if m is None:
+        _, m, ssum = flash_attention_fwd(q, k, v, scale, with_stats=True)
+    _check_bwd(q, k, v, out, m, ssum, g)
+    b, h, s, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    delta = torch.empty_like(m)  # scratch: rowsum(g ⊙ out), written by the dQ kernel
+    lib = _lib("flash_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.afdm_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+            m.data_ptr(), ssum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), b * h, s, d, scale, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_bwd launch failed: {lib.afdm_cuda_error_string(err).decode()}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashMHA(torch.autograd.Function):
+    """Forward saves (q, k, v, out, m, Σ); backward consumes them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, stats):
+        if stats:
+            out, m, ssum = flash_attention_fwd(q, k, v, scale, with_stats=True)
+            ctx.save_for_backward(q, k, v, out, m, ssum)
+        else:
+            out = flash_attention_fwd(q, k, v, scale)
+            ctx.save_for_backward(q, k, v, out)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, *stats = ctx.saved_tensors
+        m, ssum = stats if stats else (None, None)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, m, ssum, g, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_mha(q, k, v, scale=None, stats=True):
+    """softmax(q·kᵀ·scale)·v per (batch, head) on (B, H, S, D) tensors,
+    differentiable through the hand-written backward.
+
+    When a gradient is needed the forward runs in stats mode and saves
+    (q, k, v, out, m, Σ) for the backward; ``stats=False`` saves no stats and
+    lets the backward recompute them. Without grad (``torch.no_grad``,
+    ``torch.inference_mode``, or inputs that need none) it is the fold-mode
+    forward alone.
+    """
+    scale = _default_scale(q, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashMHA.apply(q, k, v, scale, stats)
+    return flash_attention_fwd(q, k, v, scale)

@@ -1,0 +1,394 @@
+"""Training loop: AdamW + MSE-on-ε, eager PyTorch.
+
+Counterpart of ``aliasfree_diffusion_models_pytorch_tpu/train.py``. Per step:
+draw ``t ∈ [1, noise_steps)``, forward-noise the batch, predict the noise
+with the UNet, MSE on the f32 prediction, backward, AdamW update, EMA. Per
+epoch: the mean loss is recorded, ``image_gen_n`` samples are saved as a
+grid, and the checkpoint is written.
+
+Precision. The master parameters, AdamW's moments and the EMA are f32. The
+UNet computes in ``compute_dtype``: before each forward the compute model's
+parameters are refreshed from the masters (a cast to bf16, or a plain copy in
+f32), and after the backward their gradients are cast back to f32 for the
+optimizer. That is what the JAX package does by casting each f32 parameter
+where it is used. ``torch.autocast`` is not used: its rules for norms and
+softmax differ.
+
+Optimizer. ``torch.optim.AdamW`` with betas 0.9/0.999, eps 1e-8, weight decay
+1e-2 and a constant lr by default. Opt-in through ``TrainConfig``:
+``lr_schedule="warmup_cosine"`` (linear 0 → lr over ``warmup_steps`` updates,
+cosine down to ``lr·lr_min_ratio`` at ``lr_total_steps``), ``grad_clip``
+(global-norm clip, scale ``clip / max(norm, clip)``, applied to the averaged
+gradient) and ``grad_accum=k`` (the gradients of k micro-batches are averaged
+and the update happens on every k-th).
+
+Randomness. One ``torch.Generator`` on the training device, re-seeded for
+every step from ``(seed + 1, global step)``: a resumed run draws what an
+unbroken one would. The step function also takes ``t``, ``noise`` and ``keep``
+directly, which the tests use to hand in another framework's draws.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import math
+import os
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from aliasfree_diffusion_models_pytorch_tpu_torch.config import TrainConfig
+from aliasfree_diffusion_models_pytorch_tpu_torch.data import Dataloader, PrefetchLoader
+from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
+from aliasfree_diffusion_models_pytorch_tpu_torch.models.unet import UNet, build_model, param_count
+
+logger = logging.getLogger(__name__)
+
+STEP_START_EMA = 2000  # micro-batches during which the EMA copies the parameters
+LOG_EVERY = 50  # steps between two loss records in metrics.jsonl
+
+
+def lr_at(config: TrainConfig, update: int) -> float:
+    """Learning rate of optimizer update number ``update`` (0-based)."""
+    if config.lr_schedule == "constant":
+        return config.lr
+    if config.lr_total_steps is None:
+        raise ValueError(
+            "lr_schedule='warmup_cosine' needs a decay horizon: set "
+            "TrainConfig.lr_total_steps (in optimizer updates) or use "
+            "train(), which derives it from the dataloader"
+        )
+    warmup, total = config.warmup_steps, int(config.lr_total_steps)
+    if update < warmup:
+        return config.lr * update / warmup
+    decay_steps = total - warmup
+    if decay_steps <= 0:
+        raise ValueError(
+            f"lr_total_steps ({total}) must exceed warmup_steps ({warmup})")
+    count = min(update - warmup, decay_steps)
+    cosine = 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
+    return config.lr * ((1.0 - config.lr_min_ratio) * cosine + config.lr_min_ratio)
+
+
+def make_optimizer(config: TrainConfig, params) -> torch.optim.AdamW:
+    """AdamW over ``params`` (f32 tensors that carry ``.grad``) with the
+    reference's hyperparameters; the step sets each update's lr (:func:`lr_at`)."""
+    return torch.optim.AdamW(list(params), lr=config.lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-2)
+
+
+def recover_base_width(config: TrainConfig, root: str = ".") -> TrainConfig:
+    """Adopt the ``base_width`` stored beside an existing checkpoint.
+
+    ``train()`` writes the full config to ``models/<run>/config.json``; the
+    checkpoint's weights fix the width, so on restore the stored value wins
+    over the one passed in.
+    """
+    cfg_path = os.path.join(config.model_dir(root), "config.json")
+    if not os.path.exists(cfg_path):
+        return config
+    try:
+        with open(cfg_path) as f:
+            stored = json.load(f)
+    except (OSError, ValueError):
+        return config
+    if "base_width" not in stored:
+        return config
+    width = stored["base_width"]
+    width = None if width is None else int(width)
+    if width != config.base_width:
+        logger.info("restoring with base_width=%s from %s (overrides %s)",
+                    width, cfg_path, config.base_width)
+        config = dataclasses.replace(config, base_width=width)
+    return config
+
+
+class EMA:
+    """Reference-API EMA helper on ``state_dict``-like dicts of tensors:
+    ``step_ema`` copies the parameters for the first ``step_start_ema`` calls,
+    then blends ``old·beta + new·(1 − beta)``. The training loop uses the
+    in-step version (:func:`make_train_step`); this class is for code that
+    drives the EMA by hand."""
+
+    def __init__(self, beta: float):
+        self.beta = beta
+        self.step = 0
+
+    def update_model_average(self, ema_params, params):
+        return {k: ema_params[k] * self.beta + (1.0 - self.beta) * params[k] for k in params}
+
+    def step_ema(self, ema_params, params, step_start_ema: int = STEP_START_EMA):
+        self.step += 1
+        if self.step <= step_start_ema:
+            return {k: v.clone() for k, v in params.items()}
+        return self.update_model_average(ema_params, params)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a step updates, in place: the f32 master parameters and EMA (by
+    ``state_dict`` name), the optimizer, the gradient accumulator and the
+    counters. ``step`` counts micro-batches."""
+
+    params: dict[str, torch.Tensor]
+    ema_params: dict[str, torch.Tensor]
+    optimizer: torch.optim.AdamW
+    grad_acc: list[torch.Tensor] | None  # running mean over the window; None if grad_accum == 1
+    step: int = 0
+    mini_step: int = 0  # micro-batches in the open accumulation window
+    updates: int = 0    # optimizer updates so far
+
+    def load(self, params, ema_params, step: int) -> None:
+        """Overwrite parameters, EMA and step count (checkpoint restore)."""
+        with torch.no_grad():
+            for name, p in self.params.items():
+                p.copy_(params[name])
+                self.ema_params[name].copy_(ema_params[name])
+        self.step = int(step)
+
+
+def create_train_state(config: TrainConfig, device="cuda",
+                       state_dict=None) -> tuple[UNet, TrainState]:
+    """The compute model (in ``compute_dtype`` on ``device``) and a fresh
+    :class:`TrainState`. Weights come from ``state_dict`` or, without one,
+    from ``utils.weights.init_params(config, config.seed)``."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.utils.weights import init_params
+
+    if state_dict is None:
+        state_dict = init_params(config, config.seed)
+    model = build_model(config, device=device, state_dict=state_dict)
+    names = [name for name, _ in model.named_parameters()]
+    params = {n: state_dict[n].detach().to(device=device, dtype=torch.float32).clone()
+              for n in names}
+    ema = {n: p.clone() for n, p in params.items()}
+    grad_acc = None
+    if config.grad_accum > 1:
+        grad_acc = [torch.zeros_like(p) for p in params.values()]
+    return model, TrainState(params=params, ema_params=ema,
+                             optimizer=make_optimizer(config, params.values()),
+                             grad_acc=grad_acc)
+
+
+def make_train_step(model: UNet, config: TrainConfig, diffusion: Diffusion) -> Callable:
+    """Build the train step ``(state, batch, generator=None, labels=None,
+    n_real=None, *, t=None, noise=None, keep=None) -> (state, loss)``.
+
+    ``batch`` is NHWC f32 on the model's device; ``labels`` (B,) integers for
+    a conditional model; ``n_real`` masks padded duplicates at the end of the
+    batch out of the loss. ``t``, ``noise`` and ``keep`` (the CFG label mask)
+    are drawn from ``generator`` in that order unless given. The state is
+    updated in place and returned; ``loss`` is a 0-dim f32 tensor on the
+    device (no host synchronisation happens in the step).
+    """
+    model_params = [p for _, p in model.named_parameters()]
+    grad_accum, clip = config.grad_accum, config.grad_clip
+    use_ema, ema_beta = config.use_ema, config.ema_beta
+    label_dropout = config.label_dropout
+
+    def loss_fn(batch, generator, labels, n_real, t, noise, keep):
+        n = batch.shape[0]
+        if t is None:
+            t = diffusion.sample_timesteps(n, generator)
+        x_t, noise = diffusion.noise_images(batch, t, generator, noise=noise)
+        if labels is None:
+            pred = model(x_t, t)
+        elif label_dropout > 0.0:
+            # CFG training: drop the conditioning on a per-sample coin flip.
+            if keep is None:
+                keep = (torch.rand((n,), generator=generator, device=batch.device)
+                        >= label_dropout).float()
+            pred = model(x_t, t, labels, keep)
+        else:
+            pred = model(x_t, t, labels)
+        per_sample = ((noise - pred.float()) ** 2).mean(dim=(1, 2, 3))
+        if n_real is None:
+            return per_sample.mean()
+        # Padded duplicates at the end of the batch are masked out, so every
+        # real sample is weighted once.
+        mask = (torch.arange(n, device=batch.device) < n_real).float()
+        return (per_sample * mask).sum() / n_real
+
+    def step_fn(state: TrainState, batch, generator=None, labels=None, n_real=None, *,
+                t=None, noise=None, keep=None):
+        masters = list(state.params.values())
+        with torch.no_grad():
+            torch._foreach_copy_(model_params, masters)  # f32 masters → compute dtype
+        for p in model_params:
+            p.grad = None
+        loss = loss_fn(batch, generator, labels, n_real, t, noise, keep)
+        loss.backward()
+        with torch.no_grad():
+            # A parameter the graph never reaches (the label embedding in a step
+            # without labels) gets a zero gradient, so that weight decay still
+            # acts on it, as it does under optax.
+            grads = [torch.zeros_like(m) if p.grad is None else p.grad.float()
+                     for p, m in zip(model_params, masters)]
+            emit = True
+            if grad_accum > 1:
+                # Running mean over the window: acc += (g − acc) / (mini_step + 1).
+                torch._foreach_sub_(grads, state.grad_acc)
+                torch._foreach_div_(grads, float(state.mini_step + 1))
+                torch._foreach_add_(state.grad_acc, grads)
+                state.mini_step += 1
+                emit = state.mini_step == grad_accum
+                grads = state.grad_acc
+            if emit:
+                if clip is not None:
+                    norm = torch.linalg.vector_norm(
+                        torch.stack(torch._foreach_norm(grads)))
+                    torch._foreach_mul_(grads, clip / torch.clamp(norm, min=clip))
+                for m, g in zip(masters, grads):
+                    m.grad = g
+                for group in state.optimizer.param_groups:
+                    group["lr"] = lr_at(config, state.updates)
+                state.optimizer.step()
+                for m in masters:
+                    m.grad = None
+                state.updates += 1
+                if grad_accum > 1:
+                    torch._foreach_zero_(state.grad_acc)
+                    state.mini_step = 0
+                if use_ema:
+                    ema = list(state.ema_params.values())
+                    if state.step < STEP_START_EMA:
+                        torch._foreach_copy_(ema, masters)
+                    else:
+                        torch._foreach_mul_(ema, ema_beta)
+                        torch._foreach_add_(ema, masters, alpha=1.0 - ema_beta)
+        state.step += 1
+        return state, loss.detach()
+
+    return step_fn
+
+
+def step_generator(generator: torch.Generator, seed: int, index: int) -> torch.Generator:
+    """Re-seed ``generator`` for draw number ``index`` of a run: the stream
+    depends on ``(seed, index)`` alone, not on what was drawn before."""
+    return generator.manual_seed(((int(seed) + 1) << 32) + int(index))
+
+
+def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    tensor = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)
+
+
+def train(
+    config: TrainConfig,
+    dataloader: Dataloader,
+    *,
+    root: str = ".",
+    device="cuda",
+    resume: bool = False,
+) -> list[float]:
+    """Full training run on ``device``; returns the per-epoch mean losses.
+
+    Artifacts under ``root``: ``results/<run>/<epoch>.jpg`` sample grids,
+    ``models/<run>/ckpt_*.npz`` (overwritten each epoch) with ``config.json``
+    beside it, ``runs/<run>/metrics.jsonl``.
+    """
+    from aliasfree_diffusion_models_pytorch_tpu_torch.utils import checkpoint as ckpt_lib
+    from aliasfree_diffusion_models_pytorch_tpu_torch.utils.io import save_image_grid
+
+    device = torch.device(device)
+    if resume:
+        config = recover_base_width(config, root)
+    if config.lr_schedule != "constant" and config.lr_total_steps is None:
+        # Cosine horizon in optimizer updates: every epoch walks the whole
+        # dataloader, and one update happens per grad_accum batches.
+        steps_per_epoch = max(1, len(dataloader))
+        config = dataclasses.replace(
+            config,
+            lr_total_steps=max(1, config.epochs * steps_per_epoch // config.grad_accum),
+        )
+        logger.info("lr_total_steps derived: %d updates", config.lr_total_steps)
+    model, state = create_train_state(config, device=device)
+    ckpt_path = config.checkpoint_path(root)
+    if resume and os.path.exists(ckpt_path + ".npz"):
+        restored = ckpt_lib.restore_checkpoint(ckpt_path)
+        state.load(restored["params"], restored["ema_params"], restored["step"])
+        logger.info("resumed from %s at step %d", ckpt_path, state.step)
+    logger.info("model variant=%d params=%s", config.variant, f"{param_count(model):,}")
+    diffusion = Diffusion(
+        noise_steps=config.noise_steps,
+        beta_start=config.beta_start,
+        beta_end=config.beta_end,
+        img_size=config.image_size,
+        device=device,
+    )
+    step_fn = make_train_step(model, config, diffusion)
+
+    os.makedirs(config.results_dir(root), exist_ok=True)
+    os.makedirs(config.model_dir(root), exist_ok=True)
+    os.makedirs(config.runs_dir(root), exist_ok=True)
+    # The full config beside the checkpoint: restore-time model construction
+    # recovers shape knobs like base_width from it.
+    with open(os.path.join(config.model_dir(root), "config.json"), "w") as f:
+        f.write(config.to_json())
+    metrics_path = os.path.join(config.runs_dir(root), "metrics.jsonl")
+
+    # The host-side gather of the next batch overlaps the device step.
+    dataloader = PrefetchLoader(dataloader)
+
+    generator = torch.Generator(device=device)
+    loss_all: list[float] = []
+    # A resumed run goes on counting where the checkpoint stopped, so its
+    # per-step streams continue those of the run that wrote it.
+    global_step = state.step
+    with open(metrics_path, "a") as metrics_f:
+        metrics_f.write(json.dumps({
+            "run_header": config.run_name,
+            "variant": config.variant,
+            "epochs": config.epochs,
+            "resumed_step": state.step,
+            "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                       else str(device)),
+        }) + "\n")
+        for epoch in range(config.epochs):
+            logger.info("Starting epoch %d:", epoch)
+            # Losses stay on the device until the epoch ends: a per-step
+            # .item() would make the host wait for every step.
+            epoch_losses: list[torch.Tensor] = []
+            t_start, imgs = time.perf_counter(), 0
+            for images, lbls in dataloader:
+                batch = _to_device(images, device)
+                labels = None
+                if config.num_classes:
+                    labels = _to_device(np.asarray(lbls, dtype=np.int64), device)
+                state, loss = step_fn(
+                    state, batch, step_generator(generator, config.seed, global_step), labels)
+                epoch_losses.append(loss)
+                imgs += images.shape[0]
+                global_step += 1
+                if global_step % LOG_EVERY == 0:
+                    loss_value = float(loss)  # waits for the device, once per log point
+                    dt = time.perf_counter() - t_start
+                    rate = imgs / max(dt, 1e-9)
+                    logger.info("epoch %d step %d loss %.4f (%.1f imgs/s)",
+                                epoch, global_step, loss_value, rate)
+                    metrics_f.write(json.dumps({
+                        "epoch": epoch, "step": global_step, "loss": loss_value,
+                        "imgs_per_sec": round(rate, 1), "wall_s": round(dt, 2),
+                    }) + "\n")
+                    metrics_f.flush()
+            loss_all.append(float(torch.stack(epoch_losses).mean()) if epoch_losses else 0.0)
+
+            if config.image_gen_n > 0:
+                weights = state.ema_params if config.use_ema else state.params
+                with torch.no_grad():
+                    torch._foreach_copy_([p for _, p in model.named_parameters()],
+                                         list(weights.values()))
+                # Epoch sampling draws from its own index range, above every
+                # per-step index.
+                final, _ = diffusion.sample(
+                    model, n=config.image_gen_n, image_channels=config.image_channels,
+                    generator=step_generator(generator, config.seed, 2**31 + epoch))
+                save_image_grid(final.cpu().numpy(),
+                                os.path.join(config.results_dir(root), f"{epoch}.jpg"))
+            ckpt_lib.save_checkpoint(ckpt_path, state.params, state.ema_params, state.step)
+    return loss_all

@@ -1,5 +1,5 @@
-"""Weights: JAX parameter trees and npz checkpoints into the port, and a
-seeded torch-default initialisation.
+"""Weights: JAX parameter trees and npz checkpoints into the port and back,
+and a seeded torch-default initialisation.
 
 The port's module attributes carry the JAX parameter tree's names, so a
 leaf ``a/b/kernel`` becomes ``a.b.weight`` with a layout transpose:
@@ -74,6 +74,39 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
         name, tensor = _leaf_to_torch(leaf, value)
         state[".".join([*modules, name])] = tensor
     return state
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`params_from_jax`: a ``state_dict`` of the port's
+    UNet as the JAX parameter tree (nested dicts of numpy f32 leaves, without
+    the outer ``"params"`` level).
+
+    A 4-D ``weight`` is a conv kernel, a 1-D one a norm scale, a 2-D one a
+    dense kernel, or, with no ``bias`` beside it, an embedding table (every
+    Linear of the UNet has a bias).
+    """
+    tree: dict = {}
+    for key, tensor in state.items():
+        *modules, leaf = key.split(".")
+        value = tensor.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            if value.ndim == 4:
+                leaf, value = "kernel", value.transpose(2, 3, 1, 0)
+            elif value.ndim == 2 and ".".join([*modules, "bias"]) in state:
+                leaf, value = "kernel", value.T
+            elif value.ndim == 2:
+                leaf = "embedding"
+            elif value.ndim == 1:
+                leaf = "scale"
+            else:
+                raise ValueError(f"unexpected weight rank {value.ndim} at {key}")
+        elif leaf != "bias":
+            raise ValueError(f"unknown state_dict entry {key!r}")
+        node = tree
+        for part in modules:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return tree
 
 
 def load_jax_npz(path: str, ema: bool = False) -> dict[str, torch.Tensor]:

@@ -5,22 +5,38 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. names the card (``nvidia-smi`` name and power limit, torch's device name);
 2. builds every hand-written kernel from ``csrc/`` with nvcc (sm_90a), all
-   sources at once, and prints the build seconds and ptxas' register report;
-3. holds each kernel against its plain PyTorch version on the card at every
-   shape of the main path (Config D, image 32, base width 32: the six
-   attention blocks at n=16 and at the CFG-doubled n=32), in bf16 and f32,
-   with and without softmax stats, and times kernel, plain version and the
-   one-call PyTorch yardstick (``scaled_dot_product_attention``, never
-   called by the port) with CUDA events, beside the reckoned bound;
+   sources at once (``flash_fwd``, ``flash_bwd``), and prints the build
+   seconds and ptxas' register report;
+3. holds each kernel against its plain PyTorch version on the card, in bf16
+   and f32, with and without softmax stats, and times kernel, plain version
+   and the one-call PyTorch yardstick (``scaled_dot_product_attention`` and
+   its backward, never called by the port) beside the reckoned bound:
+   the forward at every shape of the sampling path (Config D, image 32, base
+   width 32: the six attention blocks at n=16 and at the CFG-doubled n=32);
+   the backward at every shape of the training path (the same six blocks at
+   batch 256, the six blocks of the 64-px step at batch 32, S up to 4096, and
+   S=16384 of a 128-px step at batch 2), with the stats-mode forward that
+   feeds it checked at the same shapes;
 4. runs the full-width Config-D UNet forward (n=16) in f32 on the card
    against the same weights on the CPU (TF32 off), and in bf16, counting 6
-   kernel launches per forward; then DDIM-5 on the card against the CPU with
-   the same injected noise;
-5. drives the main path through the CLI's ``sample`` entry point: 1000-step
-   DDPM at n=16 in bf16 (5994 launches), DDIM-50, DDIM-50 with θ=90
-   (Config E) and a conditional DDIM-20 with CFG 3.0 — each with its launch
-   counter set to 0 just before and read just after;
-6. prints one JSON line of every ported kernel, the card line, and last
+   kernel launches per forward; DDIM-5 on the card against the CPU with the
+   same injected noise; then one f32 train step on the card against the CPU
+   (same weights, batch, t and noise): loss and every parameter's gradient,
+   6 forward and 6 backward launches;
+5. drives the sampling path through the CLI's ``sample`` entry point:
+   1000-step DDPM at n=16 in bf16 (5994 launches), DDIM-50, DDIM-50 with θ=90
+   (Config E) and a conditional DDIM-20 with CFG 3.0;
+6. drives the training path through the CLI's ``train`` entry point: Config D
+   at batch 256 in bf16 on the synthetic dataset, 10 steps (60 forward and 60
+   backward launches, falling loss, a checkpoint), ``sample`` from that
+   checkpoint, and a short run with EMA, accumulation, clipping and the
+   warmup-cosine schedule — every launch counter set to 0 just before each
+   run and read just after;
+7. times the steady-state train step (batch 256 at 32 px, then batch 32 at
+   64 px, which sends S=4096 through the backward): ms per step, images per
+   second, kernels per step and device busy share from torch.profiler, peak
+   memory;
+8. prints one JSON line of every ported kernel, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the ``ok``
@@ -61,6 +77,24 @@ HEADS = 4
 OUT_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 M_ATOL = 1e-5   # row max of identical f32 logits, summation order only
 SUM_RTOL = 1e-4  # Σ rescaled once per 32-key tile: a few f32 roundings per tile
+
+# The 64-px train step (image 64, base width 64, batch 32): (block, S, C).
+ATTN_SHAPES_64 = [("sa1", 1024, 128), ("sa2", 256, 256), ("sa3", 64, 256),
+                  ("sa4", 256, 128), ("sa5", 1024, 64), ("sa6", 4096, 64)]
+# The longest sequence the JAX package trains (image 128, base width 128):
+# checked against the plain version at batch 2; no train step runs it here.
+ATTN_SHAPES_128 = [("sa6", 16384, 128)]
+# Backward kernel vs plain version, max |difference| of dQ, dK, dV allowed
+# (inputs are standard normal, so the gradients are of order 1, below 8):
+#  f32: the same f32 products summed in another order, and __expf against
+#  torch.exp (2 ulp) → 2e-5;
+#  bf16: both round P and dS to bf16 from f32 values that differ in the last
+#  bits, so single terms can round one bf16 ulp apart, and both round the
+#  result to bf16 (one ulp at |grad| < 8 is 2^-5) → 4e-2.
+BWD_ATOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}
+# The plain backward holds about six S×S f32 arrays per (batch, head): it is
+# compared, and timed, at the largest batch that keeps one of them under this.
+PLAIN_SS_BYTES = 5 * 2**30
 
 
 def log(msg: str) -> None:
@@ -173,6 +207,91 @@ def phase_kernels(fa) -> dict:
     return dict(rows=rows, max_err=max_err)
 
 
+def attention_bwd_times(bh: int, s: int, d: int, dtype) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one backward: q, k, v, out, g and the two
+    stats read once, dQ, dK, dV written once at the memory rate; the five
+    products (10·S²·D FLOPs per head) at the dtype's peak and one exp per
+    (query, key) at the exp rate, the slower of the two. It counts the work,
+    not the design: a backward that takes two exps per pair is held to one."""
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = 8 * bh * s * d * elt + 2 * bh * s * 4
+    t_ops = max(10 * bh * s * s * d / MATMUL_FLOPS_PER_S[dtype], bh * s * s / EXP_PER_S)
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * t_ops
+
+
+def phase_bwd_kernel(fa) -> dict:
+    """Backward kernel vs plain version at every training shape; timings."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rows = []
+    for px, n, shapes in ((32, 256, ATTN_SHAPES), (64, 32, ATTN_SHAPES_64),
+                          (128, 2, ATTN_SHAPES_128)):
+        for block, s, c in shapes:
+            d = c // HEADS
+            scale = 1.0 / math.sqrt(d)
+            # batch of the comparison with the plain version (see PLAIN_SS_BYTES)
+            n_plain = max(1, min(n, PLAIN_SS_BYTES // (HEADS * s * s * 4)))
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, g = (torch.randn((n, HEADS, s, d), generator=gen, device="cuda")
+                              .to(dtype) for _ in range(4))
+                out, m, ssum = fa.flash_attention_fwd(q, k, v, scale, with_stats=True)
+                small = [t[:n_plain].contiguous() for t in (q, k, v, out, g)]
+                stats = [t[:n_plain * HEADS].contiguous() for t in (m, ssum)]
+                qs, ks, vs, os_, gs = small
+                # the stats-mode forward that feeds the backward, at this shape
+                ref_o, ref_m, ref_s = fa.attention_reference(qs, ks, vs, scale, with_stats=True)
+                fwd_err = (os_.float() - ref_o.float()).abs().max().item()
+                check(fwd_err <= OUT_ATOL[dtype], f"{px}px {block} S={s}: forward err {fwd_err}")
+                check((stats[0] - ref_m).abs().max().item() <= M_ATOL
+                      and ((stats[1] - ref_s).abs() / ref_s).max().item() <= SUM_RTOL,
+                      f"{px}px {block} S={s}: forward stats")
+                del ref_o, ref_m, ref_s
+                ref = fa.attention_backward_reference(qs, ks, vs, os_, *stats, gs, scale)
+                got = fa.flash_attention_bwd(qs, ks, vs, os_, *stats, gs, scale)
+                # without stats, and with a cotangent that is not contiguous
+                g_t = gs.transpose(2, 3).contiguous().transpose(2, 3)
+                got_ns = fa.flash_attention_bwd(qs, ks, vs, os_, None, None, g_t, scale)
+                torch.cuda.synchronize()
+                errs = [max((a.float() - r.float()).abs().max().item(),
+                            (b.float() - r.float()).abs().max().item())
+                        for a, b, r in zip(got, got_ns, ref)]
+                tag = f"{px}px {block} n={n} S={s} D={d} {str(dtype)[6:]}"
+                for name, err in zip(("dq", "dk", "dv"), errs):
+                    check(err <= BWD_ATOL[dtype], f"{tag}: {name} err {err} > {BWD_ATOL[dtype]}")
+                check(all(bool(torch.isfinite(a).all()) for a in got), f"{tag}: finite")
+                max_err[dtype] = max(max_err[dtype], *errs)
+                del ref, got, got_ns
+                row = dict(px=px, block=block, n=n, bh=n * HEADS, s=s, d=d,
+                           dtype=str(dtype)[6:], max_abs_err=max(errs),
+                           err_dq=errs[0], err_dk=errs[1], err_dv=errs[2],
+                           fwd_err=fwd_err, plain_bh=n_plain * HEADS)
+                qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+                sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+                calls = {
+                    "": lambda: fa.flash_attention_bwd(q, k, v, out, m, ssum, g, scale),
+                    "plain_": lambda: fa.attention_backward_reference(
+                        qs, ks, vs, os_, *stats, gs, scale),
+                    "library_": lambda: torch.autograd.grad(
+                        sdpa_out, (qg, kg, vg), g, retain_graph=True),
+                }
+                for key, fn in calls.items():
+                    row[f"{key}ms"] = device_ms(fn, iters=5)
+                    row[f"{key}call_ms"] = call_ms(fn, iters=10, warmup=1)
+                row["bound_ms"], row["bound_by"] = bound(
+                    [attention_bwd_times(n * HEADS, s, d, dtype)])
+                rows.append(row)
+                log(f"  {tag:<34} err dq {errs[0]:.1e} dk {errs[1]:.1e} dv {errs[2]:.1e}"
+                    f"  device us: kernel {row['ms'] * 1e3:8.1f}"
+                    f" plain(bh={row['plain_bh']}) {row['plain_ms'] * 1e3:8.1f}"
+                    f" sdpa-bwd {row['library_ms'] * 1e3:8.1f}"
+                    f" bound {row['bound_ms'] * 1e3:7.2f} ({row['bound_by']})")
+                del sdpa_out, qg, kg, vg, q, k, v, g, out, m, ssum, small, stats
+            torch.cuda.empty_cache()
+    return dict(rows=rows, max_err=max_err)
+
+
 def phase_unet(fa, weights, unet_mod, config) -> None:
     """Full-width Config-D forward: f32 card vs CPU, bf16 finite, 6 launches each."""
     import dataclasses
@@ -217,6 +336,50 @@ def phase_unet(fa, weights, unet_mod, config) -> None:
     diff = np.abs(outs[0] - outs[1])
     log(f"  DDIM-5 card vs cpu (uint8): max diff {diff.max()}, share differing {np.mean(diff > 0):.4f}")
     check(diff.max() <= 1 and np.mean(diff > 0) <= 0.02, "DDIM-5 card vs cpu")
+
+
+def phase_train_step_vs_cpu(fa, weights, config) -> None:
+    """One f32 train step at full width (n=16): the card against the CPU with
+    the same weights, batch, timesteps and noise."""
+    import dataclasses
+
+    from aliasfree_diffusion_models_pytorch_tpu_torch import train as train_mod
+    from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
+
+    f32 = dataclasses.replace(config, compute_dtype="float32", batch_size=16)
+    sd = weights.init_params(f32, 0)
+    rng = np.random.default_rng(1)
+    batch = torch.from_numpy(rng.uniform(-1, 1, (16, 32, 32, 3)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(1, 1000, 16))
+    noise = torch.from_numpy(rng.standard_normal((16, 32, 32, 3)).astype(np.float32))
+    results = {}
+    for dev in ("cpu", "cuda"):
+        model, state = train_mod.create_train_state(f32, device=dev, state_dict=sd)
+        step = train_mod.make_train_step(
+            model, f32, Diffusion(noise_steps=1000, img_size=32, device=dev))
+        fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+        _, loss = step(state, batch.to(dev), t=t.to(dev), noise=noise.to(dev))
+        if dev == "cuda":
+            counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+            check(counts == (6, 6), f"f32 train step: launches {counts}, expected (6, 6)")
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        results[dev] = (float(loss), grads,
+                        {n: p.detach().cpu() for n, p in state.params.items()})
+    (loss_c, grads_c, params_c), (loss_g, grads_g, params_g) = results["cpu"], results["cuda"]
+    check(abs(loss_c - loss_g) <= 1e-4 * abs(loss_c), f"f32 step loss {loss_g} vs cpu {loss_c}")
+    # Gradients: f32 sums in another order through ~40 layers (cuDNN against
+    # the CPU's convolutions): each tensor within 2e-3 of its own largest entry.
+    worst, worst_name = 0.0, ""
+    for name, gc in grads_c.items():
+        rel = ((grads_g[name] - gc).abs().max() / gc.abs().max().clamp_min(1e-12)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"  f32 train step card vs cpu: loss {loss_g:.6f} vs {loss_c:.6f}; worst gradient "
+        f"error {worst:.2e} of its tensor's max ({worst_name}; limit 2e-3); 6 + 6 launches")
+    check(worst <= 2e-3, f"f32 step gradient {worst_name}: {worst}")
+    # After AdamW's first update every parameter moved by at most lr (3e-4).
+    moved = max((params_g[n] - sd[n]).abs().max().item() for n in params_g)
+    check(0 < moved <= 3.1e-4, f"f32 step: parameters moved by {moved}")
 
 
 def profile_forward(model, x, t) -> dict:
@@ -273,6 +436,154 @@ def phase_cli(fa, cli) -> list[dict]:
     return results
 
 
+TRAIN_FLAGS = ["--variant", "3", "--image-size", "32", "--batch-size", "256",
+               "--image-channels", "3", "--compute-dtype", "bfloat16", "--f-kernel", "3",
+               "--f-beta", "2", "--dataset", "CIFAR10", "--image-gen-per-epoch", "0",
+               "--device", "cuda"]
+
+
+def phase_cli_train(fa, cli) -> list[dict]:
+    """The training path through the CLI: train, sample from its checkpoint,
+    and a short run with every opt-in optimizer knob."""
+    import shutil
+
+    root = os.path.join(OUT_DIR, "train_root")
+    shutil.rmtree(root, ignore_errors=True)
+    results = []
+
+    def counted(name, fn, expect):
+        torch.cuda.synchronize()
+        fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+        check(counts == expect, f"{name}: launches (fwd, bwd) {counts}, expected {expect}")
+        results.append(dict(run=name, wall_s=wall, fwd_launches=counts[0],
+                            bwd_launches=counts[1],
+                            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+        return value, wall
+
+    # 512 synthetic images at batch 256: 2 steps an epoch, 10 steps.
+    args = cli.build_parser().parse_args(["train", *TRAIN_FLAGS, "--epochs", "5", "--root", root])
+    losses, wall = counted("train_10_steps", lambda: cli.run_train(args), (60, 60))
+    log(f"  train 10 steps at batch 256: {wall:.2f} s wall (first steps included), epoch mean "
+        f"losses {[round(x, 4) for x in losses]}, 60 + 60 launches, "
+        f"peak memory {results[-1]['peak_mem_gb']:.2f} GB")
+    check(len(losses) == 5 and all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    ckpt = os.path.join(root, "models", "DDPM_Uncondtional_CIFAR10_3", "ckpt_CIFAR10_3.npz")
+    check(os.path.exists(ckpt), f"no checkpoint at {ckpt}")
+    results[-1]["epoch_losses"] = losses
+
+    sample_args = cli.build_parser().parse_args(
+        ["sample", "--variant", "3", "--image-size", "32", "--image-channels", "3",
+         "--compute-dtype", "bfloat16", "--f-kernel", "3", "--f-beta", "2", "--dataset",
+         "CIFAR10", "--device", "cuda", "--ddim-steps", "20", "--n", "16", "--root", root,
+         "--out", os.path.join(OUT_DIR, "trained_ddim20.png")])
+    final, wall = counted("sample_trained_ddim20", lambda: cli.run_sample(sample_args), (120, 0))
+    log(f"  sample from the trained checkpoint, DDIM-20: {wall:.2f} s, pixel std {final.std():.1f}")
+    check(final.shape == (16, 32, 32, 3) and final.dtype == np.uint8 and final.std() > 0,
+          "sample from the trained checkpoint")
+
+    # Every opt-in knob: 2 epochs = 4 micro-batches = 2 updates (lr 0, then lr).
+    knob_root = os.path.join(OUT_DIR, "train_knobs_root")
+    shutil.rmtree(knob_root, ignore_errors=True)
+    args = cli.build_parser().parse_args(
+        ["train", *TRAIN_FLAGS, "--epochs", "2", "--root", knob_root, "--use-ema",
+         "--grad-accum", "2", "--grad-clip", "1.0", "--lr-schedule", "warmup_cosine",
+         "--warmup-steps", "1"])
+    losses, wall = counted("train_knobs_4_steps", lambda: cli.run_train(args), (24, 24))
+    log(f"  train with EMA, accumulation 2, clip 1.0, warmup-cosine: {wall:.2f} s, "
+        f"losses {[round(x, 4) for x in losses]}")
+    check(all(math.isfinite(x) for x in losses), f"knob run losses {losses}")
+    return results
+
+
+def profile_step(step, state, batch) -> dict:
+    """Device time and kernel count of one train step (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, loss = step(state, batch)
+        loss.item()
+        wall = time.perf_counter() - t0
+    busy = {"total": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0}
+    by_name: dict[str, list] = {}  # kernel name -> [device us, launches]
+    kernels = 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = evt.time_range.elapsed_us()
+            busy["total"] += us
+            kernels += 1
+            entry = by_name.setdefault(evt.name, [0.0, 0])
+            entry[0] += us
+            entry[1] += 1
+            for key in ("flash_fwd", "flash_bwd"):
+                if key in evt.name:
+                    busy[key] += us
+    check(busy["total"] > 0, "torch.profiler recorded no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"profiled_wall_ms": round(wall * 1e3, 3),
+            "device_busy_ms": round(busy["total"] / 1e3, 3), "device_kernels": kernels,
+            "flash_fwd_ms": round(busy["flash_fwd"] / 1e3, 4),
+            "flash_bwd_ms": round(busy["flash_bwd"] / 1e3, 4),
+            "top_kernels": [{"name": name[:100], "ms": round(us / 1e3, 3), "launches": count}
+                            for name, (us, count) in top]}
+
+
+def phase_step_time(fa, config) -> list[dict]:
+    """Steady-state train step on one fixed batch: 32 px at batch 256, then
+    64 px (base width 64) at batch 32. A ``.item()`` closes the timed region."""
+    import dataclasses
+
+    from aliasfree_diffusion_models_pytorch_tpu_torch import train as train_mod
+    from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
+
+    results = []
+    for px, n, warm, timed in ((32, 256, 3, 10), (64, 32, 2, 5)):
+        cfg = dataclasses.replace(config, image_size=px, batch_size=n, run_name=f"bench{px}")
+        model, state = train_mod.create_train_state(cfg, device="cuda")
+        step_fn = train_mod.make_train_step(
+            model, cfg, Diffusion(noise_steps=1000, img_size=px, device="cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step = lambda st, b: step_fn(st, b, gen)  # noqa: E731
+        rng = np.random.default_rng(0)
+        batch = torch.from_numpy(rng.standard_normal((n, px, px, 3)).astype(np.float32)).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(warm):
+            state, loss = step(state, batch)
+        loss.item()
+        fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, loss = step(state, batch)
+        final_loss = loss.item()  # waits for the device inside the timed region
+        step_ms = (time.perf_counter() - t0) / timed * 1e3
+        counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+        check(counts == (6 * timed, 6 * timed), f"{px}px steps: launches {counts}")
+        check(math.isfinite(final_loss), f"{px}px step loss {final_loss}")
+        prof = profile_step(step, state, batch)
+        row = dict(px=px, batch=n, step_ms=step_ms, imgs_per_s=n / step_ms * 1e3,
+                   idle_share=1.0 - prof["device_busy_ms"] / step_ms,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   final_loss=final_loss, **prof)
+        results.append(row)
+        log(f"  {px}px batch {n} bf16: {step_ms:.2f} ms per step, {row['imgs_per_s']:.1f} "
+            f"images/s, device busy {prof['device_busy_ms']:.2f} ms "
+            f"(idle share {row['idle_share']:.2f}), {prof['device_kernels']} kernels per step, "
+            f"flash_fwd {prof['flash_fwd_ms']:.3f} ms + flash_bwd {prof['flash_bwd_ms']:.3f} ms "
+            f"per step, peak memory {row['peak_mem_gb']:.2f} GB")
+        for k in prof["top_kernels"]:
+            log(f"    {k['ms']:8.3f} ms {k['launches']:5d}x  {k['name']}")
+        del model, state, step_fn, step, batch
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false — needs a CUDA GPU")
@@ -291,6 +602,7 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     log("[1] build")
+    t_build = time.perf_counter()
     for name in kernels.SOURCES:
         stale = kernels.library_path(name)
         if stale.exists():
@@ -301,21 +613,48 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
 
-    log("[2] kernel vs plain version at the main-path shapes")
+    log(f"  [build: {time.perf_counter() - t_build:.1f} s]")
+    t_phase = time.perf_counter()
+
+    def done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"  [{name}: {now - t_phase:.1f} s]")
+        t_phase = now
+
+    log("[2] forward kernel vs plain version at the sampling-path shapes")
     kres = phase_kernels(fa)
+    done("forward kernel")
+    log("[2b] backward kernel vs plain version at the training-path shapes")
+    bres = phase_bwd_kernel(fa)
+    done("backward kernel")
 
     config = cli.config_from_args(cli.build_parser().parse_args(
         ["sample", "--variant", "3", "--image-size", "32", "--image-channels", "3",
          "--compute-dtype", "bfloat16", "--f-kernel", "3", "--f-beta", "2"]))
     log("[3] full-width Config-D UNet forward and sampler, card vs cpu")
     phase_unet(fa, weights, unet_mod, config)
+    done("unet card vs cpu")
+    log("[3b] full-width f32 train step, card vs cpu")
+    phase_train_step_vs_cpu(fa, weights, config)
+    done("train step card vs cpu")
 
     log("[4] main path: CLI sample")
     runs = phase_cli(fa, cli)
+    done("cli sample")
+    log("[5] main path: CLI train, sample from its checkpoint, optimizer knobs")
+    train_runs = phase_cli_train(fa, cli)
+    done("cli train")
+    log("[6] steady-state train step")
+    step_rows = phase_step_time(fa, config)
+    done("step time")
 
     main_rows = [r for r in kres["rows"] if r["n"] == 16 and r["dtype"] == "bfloat16"]
     main_bound, main_bound_by = bound(
         [attention_times(r["bh"], r["s"], r["d"], torch.bfloat16) for r in main_rows])
+    bwd_rows = [r for r in bres["rows"] if r["px"] == 32 and r["dtype"] == "bfloat16"]
+    bwd_bound, bwd_bound_by = bound(
+        [attention_bwd_times(r["bh"], r["s"], r["d"], torch.bfloat16) for r in bwd_rows])
     kernels_line = {"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -332,6 +671,26 @@ def main() -> int:
         "max_abs_err_by_dtype": {str(k)[6:]: v for k, v in kres["max_err"].items()},
         "shapes": kres["rows"],
         "main_path_runs": runs,
+        "train_path_launches": train_runs[0]["fwd_launches"],
+    }, {
+        "name": "flash_bwd",
+        "route": "cuda",
+        "source": "aliasfree_diffusion_models_pytorch_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "aliasfree_diffusion_models_pytorch_tpu/ops/flash_attention.py:166 "
+                    "(_bwd_kernel) and :269 (_bwd_kernel_strips)",
+        "launches": train_runs[0]["bwd_launches"],
+        "max_abs_err": max(bres["max_err"].values()),
+        # times: the six attention backward calls of one bf16 Config-D train
+        # step at batch 256 (plain version at the batch its row names)
+        "ms": sum(r["ms"] for r in bwd_rows),
+        "plain_ms": sum(r["plain_ms"] for r in bwd_rows),
+        "bound_ms": bwd_bound,
+        "bound_by": bwd_bound_by,
+        "library_ms": sum(r["library_ms"] for r in bwd_rows),
+        "max_abs_err_by_dtype": {str(k)[6:]: v for k, v in bres["max_err"].items()},
+        "shapes": bres["rows"],
+        "main_path_runs": train_runs,
+        "train_step": step_rows,
     }]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)  # the nvidia-smi line as it printed it

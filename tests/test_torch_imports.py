@@ -50,8 +50,11 @@ print(json.dumps({{"imported": names, "loaded": sorted(set(sys.modules) - before
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert {PORT + m for m in (".cli", ".diffusion", ".models.unet",
-                               ".ops.flash_attention", ".utils.kernels")} <= set(result["imported"])
+    assert {PORT + m for m in (".cli", ".config", ".data", ".diffusion", ".train",
+                               ".models.unet", ".ops.flash_attention", ".utils.checkpoint",
+                               ".utils.kernels", ".utils.weights")} <= set(result["imported"])
+    # importing the port builds no kernel and needs neither triton nor a CUDA toolchain
+    assert "triton" not in result["loaded"]
     bad = [m for m in result["loaded"] if _forbidden(m)]
     assert not bad, bad
 
