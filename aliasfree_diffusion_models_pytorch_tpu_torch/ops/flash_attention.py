@@ -201,6 +201,17 @@ def flash_attention_bwd(q, k, v, out, m, ssum, g, scale=None):
     take :func:`attention_backward_reference`. CUDA tensors launch the
     hand-written kernel on the current stream; anything it cannot take
     raises. A non-contiguous ``g`` is made contiguous here.
+
+    Without stats the steps stay those of the stats mode: P is rounded to the
+    input dtype unnormalised and 1/Σ applied afterwards. The TPU kernel's
+    no-stats branch (``_bwd_kernel`` :201-207) rounds the normalised P. In f32
+    the two agree to summation order; in bf16 single weights round one bf16
+    ulp apart, so the gradients agree to a few ulps of their largest entry
+    (``tests/test_torch_flash_backward.py`` holds them to that).
+
+    ``launches`` counts calls that reached the card. Each runs two kernels
+    (dQ with δ, then dK/dV), and a call without stats also counts once in
+    ``flash_attention_fwd.launches``.
     """
     if (m is None) != (ssum is None):
         raise ValueError("m and ssum come together: pass both or neither")

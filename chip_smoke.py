@@ -68,13 +68,20 @@ EXP_PER_S = 3.9e12
 ATTN_SHAPES = [("sa1", 256, 64), ("sa2", 64, 128), ("sa3", 16, 128),
                ("sa4", 64, 64), ("sa5", 256, 32), ("sa6", 1024, 32)]
 HEADS = 4
-# Kernel vs plain version, max |difference| allowed:
-#  f32: both sum f32 products exactly, in another order → 1e-5;
-#  bf16: the kernel rounds p to bf16 against the running max of its online
-#  softmax, the plain version against the final max, so single weights can
-#  round one bf16 ulp apart (2^-8 relative), and both round the output to
-#  bf16 (one ulp at |out| < 2 is 2^-7) → 2e-2.
-OUT_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# Kernel vs plain version: max |difference| of a tensor, as a share of that
+# tensor's largest |entry| in the plain version. With standard-normal inputs
+# the outputs and gradients shrink like 1/sqrt(S) (std about 0.4 at S=16, 0.05
+# at S=1024, 0.013 at S=16384), so one absolute limit would be loose by orders
+# of magnitude at the long sequences; a relative one is as tight at every S.
+#  f32: both sum the same f32 products, in another order, over up to S terms
+#  (the forward rescales its sums once per 32-key tile, 512 times at S=16384),
+#  and __expf stands against torch.exp (2 ulp) → 2e-5 of the largest entry;
+#  bf16: kernel and plain version round p (and dS) to bf16 from f32 values
+#  that differ in the last bits (the forward's online softmax rounds against
+#  its running max), so single terms round one bf16 ulp apart, and both round
+#  the result to bf16. One bf16 ulp is at most 2^-7 of the entry it belongs
+#  to, so 2^-6 of the largest entry allows two ulps there and no more.
+REL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0**-6}
 M_ATOL = 1e-5   # row max of identical f32 logits, summation order only
 SUM_RTOL = 1e-4  # Σ rescaled once per 32-key tile: a few f32 roundings per tile
 
@@ -84,14 +91,6 @@ ATTN_SHAPES_64 = [("sa1", 1024, 128), ("sa2", 256, 256), ("sa3", 64, 256),
 # The longest sequence the JAX package trains (image 128, base width 128):
 # checked against the plain version at batch 2; no train step runs it here.
 ATTN_SHAPES_128 = [("sa6", 16384, 128)]
-# Backward kernel vs plain version, max |difference| of dQ, dK, dV allowed
-# (inputs are standard normal, so the gradients are of order 1, below 8):
-#  f32: the same f32 products summed in another order, and __expf against
-#  torch.exp (2 ulp) → 2e-5;
-#  bf16: both round P and dS to bf16 from f32 values that differ in the last
-#  bits, so single terms can round one bf16 ulp apart, and both round the
-#  result to bf16 (one ulp at |grad| < 8 is 2^-5) → 4e-2.
-BWD_ATOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}
 # The plain backward holds about six S×S f32 arrays per (batch, head): it is
 # compared, and timed, at the largest batch that keeps one of them under this.
 PLAIN_SS_BYTES = 5 * 2**30
@@ -128,21 +127,40 @@ def call_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_events(run) -> tuple[list[tuple[str, float]], float]:
+    """Runs ``run()`` under torch.profiler: the (name, µs) of every kernel and
+    copy on the card, and the host's seconds around the run. A trace now and
+    then comes back with no device events at all; then the run is profiled
+    again, and a third empty trace fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events, wall
+        log("  (torch.profiler recorded no device events; profiling again)")
+    raise AssertionError("torch.profiler recorded no device time in three traces")
+
+
 def device_ms(fn, iters: int = 20) -> float:
     """Device time per call: the summed durations of the kernels (and copies)
     that ``iters`` calls ran, from torch.profiler's CUDA trace."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(us > 0, "torch.profiler recorded no device time")
-    return us / iters / 1e3
+    events, _ = device_events(lambda: [fn() for _ in range(iters)])
+    return sum(us for _, us in events) / iters / 1e3
+
+
+def errors(got, ref) -> tuple[float, float]:
+    """(max |got − ref|, the same as a share of max |ref|)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / ref.float().abs().max().item()
 
 
 def attention_times(bh: int, s: int, d: int, dtype) -> tuple[float, float]:
@@ -168,6 +186,7 @@ def phase_kernels(fa) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(0)
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    max_rel = dict(max_err)
     rows = []
     for n in (16, 32):  # 32: the CFG-doubled batch
         for block, s, c in ATTN_SHAPES:
@@ -180,17 +199,18 @@ def phase_kernels(fa) -> dict:
                 ref, ref_m, ref_s = fa.attention_reference(q, k, v, scale, with_stats=True)
                 out_s, m, ssum = fa.flash_attention_fwd(q, k, v, scale, with_stats=True)
                 torch.cuda.synchronize()
-                err = max((out.float() - ref.float()).abs().max().item(),
-                          (out_s.float() - ref.float()).abs().max().item())
+                err, rel = max(errors(out, ref), errors(out_s, ref))
                 m_err = (m - ref_m).abs().max().item()
                 s_rel = ((ssum - ref_s).abs() / ref_s).max().item()
                 tag = f"{block} n={n} S={s} D={d} {str(dtype)[6:]}"
-                check(err <= OUT_ATOL[dtype], f"{tag}: out err {err} > {OUT_ATOL[dtype]}")
+                check(rel <= REL_TOL[dtype],
+                      f"{tag}: out err {err} is {rel} of max |out| > {REL_TOL[dtype]}")
                 check(m_err <= M_ATOL, f"{tag}: stats m err {m_err}")
                 check(s_rel <= SUM_RTOL, f"{tag}: stats sum rel err {s_rel}")
                 max_err[dtype] = max(max_err[dtype], err)
+                max_rel[dtype] = max(max_rel[dtype], rel)
                 row = dict(block=block, n=n, bh=n * HEADS, s=s, d=d, dtype=str(dtype)[6:],
-                           max_abs_err=err)
+                           max_abs_err=err, max_rel_err=rel)
                 calls = {"": lambda: fa.flash_attention_fwd(q, k, v, scale),
                          "plain_": lambda: fa.attention_reference(q, k, v, scale),
                          "library_": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)}
@@ -199,12 +219,12 @@ def phase_kernels(fa) -> dict:
                     row[f"{key}call_ms"] = call_ms(fn)
                 row["bound_ms"], row["bound_by"] = bound([attention_times(n * HEADS, s, d, dtype)])
                 rows.append(row)
-                log(f"  {tag:<28} err {err:.1e}  device us: kernel {row['ms'] * 1e3:7.1f}"
-                    f" plain {row['plain_ms'] * 1e3:7.1f} sdpa {row['library_ms'] * 1e3:7.1f}"
+                log(f"  {tag:<28} err {err:.1e} ({rel:.1e} of max)  device us:"
+                    f" kernel {row['ms'] * 1e3:7.1f} plain {row['plain_ms'] * 1e3:7.1f} sdpa {row['library_ms'] * 1e3:7.1f}"
                     f" bound {row['bound_ms'] * 1e3:6.2f} ({row['bound_by']}) | per call us:"
                     f" kernel {row['call_ms'] * 1e3:6.1f} plain {row['plain_call_ms'] * 1e3:6.1f}"
                     f" sdpa {row['library_call_ms'] * 1e3:6.1f}")
-    return dict(rows=rows, max_err=max_err)
+    return dict(rows=rows, max_err=max_err, max_rel=max_rel)
 
 
 def attention_bwd_times(bh: int, s: int, d: int, dtype) -> tuple[float, float]:
@@ -225,6 +245,7 @@ def phase_bwd_kernel(fa) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    max_rel = dict(max_err)
     rows = []
     for px, n, shapes in ((32, 256, ATTN_SHAPES), (64, 32, ATTN_SHAPES_64),
                           (128, 2, ATTN_SHAPES_128)):
@@ -242,8 +263,9 @@ def phase_bwd_kernel(fa) -> dict:
                 qs, ks, vs, os_, gs = small
                 # the stats-mode forward that feeds the backward, at this shape
                 ref_o, ref_m, ref_s = fa.attention_reference(qs, ks, vs, scale, with_stats=True)
-                fwd_err = (os_.float() - ref_o.float()).abs().max().item()
-                check(fwd_err <= OUT_ATOL[dtype], f"{px}px {block} S={s}: forward err {fwd_err}")
+                fwd_err, fwd_rel = errors(os_, ref_o)
+                check(fwd_rel <= REL_TOL[dtype], f"{px}px {block} S={s} {dtype}: forward err "
+                      f"{fwd_err} is {fwd_rel} of max |out| > {REL_TOL[dtype]}")
                 check((stats[0] - ref_m).abs().max().item() <= M_ATOL
                       and ((stats[1] - ref_s).abs() / ref_s).max().item() <= SUM_RTOL,
                       f"{px}px {block} S={s}: forward stats")
@@ -254,19 +276,21 @@ def phase_bwd_kernel(fa) -> dict:
                 g_t = gs.transpose(2, 3).contiguous().transpose(2, 3)
                 got_ns = fa.flash_attention_bwd(qs, ks, vs, os_, None, None, g_t, scale)
                 torch.cuda.synchronize()
-                errs = [max((a.float() - r.float()).abs().max().item(),
-                            (b.float() - r.float()).abs().max().item())
-                        for a, b, r in zip(got, got_ns, ref)]
+                both = [max(errors(a, r), errors(b, r)) for a, b, r in zip(got, got_ns, ref)]
+                errs, rels = [e for e, _ in both], [r for _, r in both]
                 tag = f"{px}px {block} n={n} S={s} D={d} {str(dtype)[6:]}"
-                for name, err in zip(("dq", "dk", "dv"), errs):
-                    check(err <= BWD_ATOL[dtype], f"{tag}: {name} err {err} > {BWD_ATOL[dtype]}")
+                for name, err, rel in zip(("dq", "dk", "dv"), errs, rels):
+                    check(rel <= REL_TOL[dtype], f"{tag}: {name} err {err} is {rel} of "
+                          f"max |{name}| > {REL_TOL[dtype]}")
                 check(all(bool(torch.isfinite(a).all()) for a in got), f"{tag}: finite")
                 max_err[dtype] = max(max_err[dtype], *errs)
+                max_rel[dtype] = max(max_rel[dtype], *rels)
                 del ref, got, got_ns
                 row = dict(px=px, block=block, n=n, bh=n * HEADS, s=s, d=d,
                            dtype=str(dtype)[6:], max_abs_err=max(errs),
                            err_dq=errs[0], err_dk=errs[1], err_dv=errs[2],
-                           fwd_err=fwd_err, plain_bh=n_plain * HEADS)
+                           rel_dq=rels[0], rel_dk=rels[1], rel_dv=rels[2],
+                           fwd_err=fwd_err, fwd_rel=fwd_rel, plain_bh=n_plain * HEADS)
                 qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
                 sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
                 calls = {
@@ -283,13 +307,14 @@ def phase_bwd_kernel(fa) -> dict:
                     [attention_bwd_times(n * HEADS, s, d, dtype)])
                 rows.append(row)
                 log(f"  {tag:<34} err dq {errs[0]:.1e} dk {errs[1]:.1e} dv {errs[2]:.1e}"
+                    f" (of max: {rels[0]:.1e} {rels[1]:.1e} {rels[2]:.1e}; fwd {fwd_rel:.1e})"
                     f"  device us: kernel {row['ms'] * 1e3:8.1f}"
                     f" plain(bh={row['plain_bh']}) {row['plain_ms'] * 1e3:8.1f}"
                     f" sdpa-bwd {row['library_ms'] * 1e3:8.1f}"
                     f" bound {row['bound_ms'] * 1e3:7.2f} ({row['bound_by']})")
                 del sdpa_out, qg, kg, vg, q, k, v, g, out, m, ssum, small, stats
             torch.cuda.empty_cache()
-    return dict(rows=rows, max_err=max_err)
+    return dict(rows=rows, max_err=max_err, max_rel=max_rel)
 
 
 def phase_unet(fa, weights, unet_mod, config) -> None:
@@ -384,25 +409,12 @@ def phase_train_step_vs_cpu(fa, weights, config) -> None:
 
 def profile_forward(model, x, t) -> dict:
     """Device time by kernel family for one forward (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
     model(x, t)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model(x, t)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    total, attn, kernels = 0.0, 0.0, 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            us = evt.time_range.elapsed_us()
-            total += us
-            kernels += 1
-            if "flash_fwd" in evt.name:
-                attn += us
+    events, wall = device_events(lambda: model(x, t))
+    total = sum(us for _, us in events)
+    attn = sum(us for name, us in events if "flash_fwd" in name)
     return {"wall_ms": round(wall * 1e3, 3), "device_busy_ms": round(total / 1e3, 3),
-            "device_kernels": kernels, "flash_fwd_ms": round(attn / 1e3, 4)}
+            "device_kernels": len(events), "flash_fwd_ms": round(attn / 1e3, 4)}
 
 
 def phase_cli(fa, cli) -> list[dict]:
@@ -504,28 +516,18 @@ def phase_cli_train(fa, cli) -> list[dict]:
 
 def profile_step(step, state, batch) -> dict:
     """Device time and kernel count of one train step (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, loss = step(state, batch)
-        loss.item()
-        wall = time.perf_counter() - t0
+    events, wall = device_events(lambda: step(state, batch)[1].item())
     busy = {"total": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0}
     by_name: dict[str, list] = {}  # kernel name -> [device us, launches]
-    kernels = 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            us = evt.time_range.elapsed_us()
-            busy["total"] += us
-            kernels += 1
-            entry = by_name.setdefault(evt.name, [0.0, 0])
-            entry[0] += us
-            entry[1] += 1
-            for key in ("flash_fwd", "flash_bwd"):
-                if key in evt.name:
-                    busy[key] += us
-    check(busy["total"] > 0, "torch.profiler recorded no device time")
+    for name, us in events:
+        busy["total"] += us
+        entry = by_name.setdefault(name, [0.0, 0])
+        entry[0] += us
+        entry[1] += 1
+        for key in ("flash_fwd", "flash_bwd"):
+            if key in name:
+                busy[key] += us
+    kernels = len(events)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {"profiled_wall_ms": round(wall * 1e3, 3),
             "device_busy_ms": round(busy["total"] / 1e3, 3), "device_kernels": kernels,
@@ -669,6 +671,11 @@ def main() -> int:
         "bound_by": main_bound_by,
         "library_ms": sum(r["library_ms"] for r in main_rows),
         "max_abs_err_by_dtype": {str(k)[6:]: v for k, v in kres["max_err"].items()},
+        # largest error of a check as a share of its tensor's largest entry,
+        # and the limit it was held to
+        "max_rel_err_by_dtype": {str(k)[6:]: v for k, v in kres["max_rel"].items()},
+        "rel_tol_by_dtype": {str(k)[6:]: v for k, v in REL_TOL.items()},
+        "kernels_per_launch": 1,
         "shapes": kres["rows"],
         "main_path_runs": runs,
         "train_path_launches": train_runs[0]["fwd_launches"],
@@ -688,6 +695,13 @@ def main() -> int:
         "bound_by": bwd_bound_by,
         "library_ms": sum(r["library_ms"] for r in bwd_rows),
         "max_abs_err_by_dtype": {str(k)[6:]: v for k, v in bres["max_err"].items()},
+        "max_rel_err_by_dtype": {str(k)[6:]: v for k, v in bres["max_rel"].items()},
+        "rel_tol_by_dtype": {str(k)[6:]: v for k, v in REL_TOL.items()},
+        # "launches" counts calls of the wrapper: each runs two __global__
+        # kernels (dQ with δ, then dK/dV), so a profiler shows twice as many
+        # flash_bwd events. A call without stats also adds 1 to flash_fwd's
+        # count (the stats-mode forward that recomputes m and Σ).
+        "kernels_per_launch": 2,
         "shapes": bres["rows"],
         "main_path_runs": train_runs,
         "train_step": step_rows,

@@ -9,7 +9,10 @@ a machine that has only PyTorch, run it with
 
 Tolerances (f32 inputs of order 1): the kernels sum the same f32 products in
 another order and use ``__expf`` where the plain versions use ``torch.exp``:
-atol 1e-5 for the forward, 2e-5 for the gradients.
+atol 1e-5 for the forward, 2e-5 for the gradients. In bf16 kernel and plain
+version round p, dS and the result to bf16 from f32 values that differ in the
+last bits, so entries land one bf16 ulp apart (at most 2^-7 of the entry):
+each tensor within 2^-6 of its largest entry, two ulps there, at every S.
 """
 
 import numpy as np
@@ -28,10 +31,16 @@ def card():
     return torch.device("cuda")
 
 
-def _tensors(card, b, h, s, d, n, seed):
+def _tensors(card, b, h, s, d, n, seed, dtype=torch.float32):
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32)).to(card)
-            for _ in range(n)]
+    return [torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32))
+            .to(card, dtype) for _ in range(n)]
+
+
+def _assert_within_bf16_ulps(got, ref, name):
+    err = (got.float() - ref.float()).abs().max().item()
+    limit = 2.0**-6 * ref.float().abs().max().item()
+    assert err <= limit, f"{name}: max error {err} > {limit} (2^-6 of the largest entry)"
 
 
 @pytest.mark.parametrize("s,d", [(200, 16), (16, 32), (1024, 8), (300, 64)])
@@ -55,6 +64,23 @@ def test_backward_kernel_matches_plain_version(card, s, d):
     assert fa.flash_attention_bwd.launches == before + 1
     for a, r in zip(got, fa.attention_backward_reference(q, k, v, out, m, ssum, g)):
         torch.testing.assert_close(a, r, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("stats", [True, False], ids=["stats", "nostats"])
+@pytest.mark.parametrize("s,d", [(16, 32), (200, 16), (1024, 8), (300, 64), (4096, 16)])
+def test_bf16_kernels_match_plain_versions(card, s, d, stats):
+    q, k, v, g = _tensors(card, 2, 4, s, d, 4, seed=s + 2, dtype=torch.bfloat16)
+    out, m, ssum = fa.flash_attention_fwd(q, k, v, with_stats=True)
+    ref_out, ref_m, ref_s = fa.attention_reference(q, k, v, with_stats=True)
+    _assert_within_bf16_ulps(out, ref_out, "out")
+    _assert_within_bf16_ulps(fa.flash_attention_fwd(q, k, v), ref_out, "out (fold mode)")
+    torch.testing.assert_close(m, ref_m, rtol=0, atol=1e-5)
+    torch.testing.assert_close(ssum, ref_s, rtol=1e-4, atol=0)
+    got = fa.flash_attention_bwd(q, k, v, out, *((m, ssum) if stats else (None, None)), g)
+    ref = fa.attention_backward_reference(q, k, v, out, m, ssum, g)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16
+        _assert_within_bf16_ulps(a, r, name)
 
 
 def test_flash_mha_autograd_on_the_card_matches_the_cpu(card):

@@ -94,6 +94,31 @@ def test_bf16_backward_rounds_where_the_kernel_does():
         assert np.abs(a - r).max() > 0  # bf16 did round somewhere
 
 
+@pytest.mark.parametrize("stats,rel", [(True, 2.0**-10), (False, 2.0**-6)],
+                         ids=["stats", "nostats"])
+def test_bf16_grads_match_pallas_backward(monkeypatch, stats, rel):
+    """bf16 on both sides, Pallas kernels in interpret mode; the limit is a
+    share of each gradient's largest entry, of which one bf16 ulp is at most
+    2^-7. With stats the two round at the same points from f32 values that
+    differ in summation order: only small entries land one of their ulps
+    apart, 2^-10 of the largest. Without, the JAX kernel rounds the normalised
+    P and the port the unnormalised one (1/Σ applied after), so single weights
+    round one ulp apart and so may the largest entries: 2^-6, two ulps there."""
+    monkeypatch.setenv("AFDM_FLASH_STATS", "1" if stats else "0")
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+               for a in _qkv(2, 4, 256, 8, seed=31))
+
+    def loss(q, k, v):
+        return jnp.sum(j_flash_mha(q, k, v, None, True).astype(jnp.float32) ** 2)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    got = _port_grads(q, k, v, stats=stats, dtype=torch.bfloat16)
+    for name, a, r in zip("qkv", got, ref):
+        assert r.dtype == jnp.bfloat16
+        r = np.asarray(r.astype(jnp.float32))
+        np.testing.assert_allclose(a, r, atol=rel * np.abs(r).max(), err_msg=f"d{name}")
+
+
 def test_flash_mha_without_grad_is_the_fold_forward():
     q, k, v = map(torch.from_numpy, _qkv(1, 2, 64, 8, seed=3))
     expect = fa.attention_reference(q, k, v)
