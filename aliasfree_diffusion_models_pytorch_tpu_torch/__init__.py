@@ -5,10 +5,15 @@ JAX package, which stays the numerical reference). Module layout and names
 follow the JAX package so each counterpart is easy to find; the port imports
 nothing from it.
 
-This slice carries the serving path: Config A-D/v4 UNet forward, DDPM/DDIM
-sampling with CFG, Config-E rotation and shift, and the ``sample``/``summary``
-CLI. The one hand-written device kernel on that path is the flash-attention
-forward (``csrc/flash_fwd.cu``, wrapped by ``ops/flash_attention.py``).
+The port carries the serving path (Config A-D/v4 UNet forward, DDPM/DDIM
+sampling with CFG, Config-E rotation and shift), the training path (AdamW
+with f32 masters, EMA, the optimizer knobs, ``.npz`` checkpoints) and the
+study path (``tasks.ddpm_run``, the Config-E sweeps, IS/FID/KID in ``eval``,
+the kernel micro-probes), all behind ``cli``. Its hand-written device kernels
+are the flash-attention forward and backward (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``, wrapped by ``ops/flash_attention.py``) and the two
+probe kernels (``csrc/exp_chain.cu``, ``csrc/qk_rowsum.cu``, wrapped by
+``ops/probes.py``).
 """
 
 __version__ = "0.1.0"

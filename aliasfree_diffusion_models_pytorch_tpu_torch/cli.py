@@ -1,18 +1,30 @@
-"""Command-line interface of the port: ``train``, ``sample`` and ``summary``.
+"""Command-line interface of the port.
 
+    python -m aliasfree_diffusion_models_pytorch_tpu_torch run --epochs 100 --batch-size 256
     python -m aliasfree_diffusion_models_pytorch_tpu_torch train --epochs 100 --batch-size 256
     python -m aliasfree_diffusion_models_pytorch_tpu_torch sample --n 16 --out samples.png
     python -m aliasfree_diffusion_models_pytorch_tpu_torch sample --ddim-steps 50 --theta 90
+    python -m aliasfree_diffusion_models_pytorch_tpu_torch rotate --thetas=-90:90:9 --out rotation
+    python -m aliasfree_diffusion_models_pytorch_tpu_torch shift --shifts=-8,0,8
+    python -m aliasfree_diffusion_models_pytorch_tpu_torch eval images/generated/X images/original/X
+    python -m aliasfree_diffusion_models_pytorch_tpu_torch sweep --variants 1,2,3
     python -m aliasfree_diffusion_models_pytorch_tpu_torch summary --variant 3
+    python -m aliasfree_diffusion_models_pytorch_tpu_torch info
+    python -m aliasfree_diffusion_models_pytorch_tpu_torch probe exp
+    python -m aliasfree_diffusion_models_pytorch_tpu_torch probe headpack --out headpack.json
 
 The flags are the JAX CLI's (``cli.py:_add_common``); the model defaults are
 Config D (variant 3) at 32 px, three channels, bf16. ``train`` writes the
 run's ``.npz`` checkpoint (``models/<run_name>/ckpt_<dataset>_<variant>.npz``
 under ``--root``), in the JAX package's layout; with no ``--dataset-path`` it
-trains on the synthetic dataset. ``sample`` reads that checkpoint (or one
-written by the JAX package) or, with ``--random-weights``, draws a seeded
-torch-default initialisation. ``--device`` picks the card (default ``cuda``)
-or ``cpu``.
+trains on the synthetic dataset. ``run`` is the whole experiment pipeline
+(``tasks.ddpm_run``: diagnostics, training, demos, the generated image set);
+``sweep`` runs it for several variants. ``sample``, ``rotate`` and ``shift``
+read the run's checkpoint (or one written by the JAX package); ``sample
+--random-weights`` draws a seeded torch-default initialisation instead.
+``eval`` computes IS/FID/KID between two folders of PNGs. ``probe`` runs one
+of the two kernel micro-probes (``probes.py``). ``--device`` picks the card
+(default ``cuda``) or ``cpu``.
 """
 
 from __future__ import annotations
@@ -123,12 +135,41 @@ def build_parser() -> argparse.ArgumentParser:
         description="Alias-free diffusion training and sampling on PyTorch/CUDA",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
+    run = sub.add_parser("run", help="full experiment pipeline (ddpm_run)")
     train = sub.add_parser("train", help="training only")
     sample = sub.add_parser("sample", help="generate images")
+    rotate = sub.add_parser("rotate", help="Config-E rotation sweep -> video/GIF")
+    shift = sub.add_parser("shift", help="translation sweep")
+    evaluate = sub.add_parser("eval", help="IS/FID/KID between two image folders")
+    sub.add_parser("info", help="torch, CUDA and device report")
     summary = sub.add_parser("summary", help="model inspection: param count + per-layer shapes")
-    for p in (train, sample, summary):
+    sweep = sub.add_parser("sweep", help="run the full pipeline for several variants")
+    probe = sub.add_parser("probe", help="kernel micro-probes: exp cost, QK^T head packing")
+    for p in (run, train, sample, rotate, shift, summary, sweep):
         _add_common(p)
-    _add_train(train)
+    for p in (run, train, sweep):
+        _add_train(p)
+    rotate.add_argument("--thetas", default="-90:90:9", help="start:stop:count degrees")
+    rotate.add_argument("--out", default="rotation")
+    rotate.add_argument("--fps", type=int, default=15)
+    rotate.add_argument("--save-sweep", default=None, metavar="PATH",
+                        help="also persist the sweep's finals + trajectories as a .npz")
+    shift.add_argument("--shifts", default="-8,0,8")
+    shift.add_argument("--out", default="shift_sweep.png")
+    sweep.add_argument("--variants", default="1,2,3",
+                       help="comma-separated UNet variants to run (reference sweep: 1,2,3)")
+    evaluate.add_argument("generated_dir")
+    evaluate.add_argument("reference_dir")
+    evaluate.add_argument("--limit", type=int, default=None)
+    evaluate.add_argument("--save", default=None)
+    probe.add_argument("which", choices=["exp", "headpack"])
+    probe.add_argument("--iters", type=int, default=None,
+                       help="timed launches per op or shape (default: exp 50, headpack 20)")
+    probe.add_argument("--out", default=None, help="write the result dict as JSON here")
+    probe.add_argument("--small", action="store_true",
+                       help="a size the CPU runs through the plain versions in seconds")
+    for p in (evaluate, probe):
+        p.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     sample.add_argument("--n", type=int, default=16)
     sample.add_argument("--out", default="samples.png")
     sample.add_argument("--ddim-steps", type=int, default=None,
@@ -150,21 +191,16 @@ def run_sample(args) -> np.ndarray:
     and writes its grid to ``args.out``."""
     from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
     from aliasfree_diffusion_models_pytorch_tpu_torch.models.unet import build_model
-    from aliasfree_diffusion_models_pytorch_tpu_torch.train import recover_base_width
+    from aliasfree_diffusion_models_pytorch_tpu_torch.tasks import _load_model_params
     from aliasfree_diffusion_models_pytorch_tpu_torch.utils.io import save_image_grid
-    from aliasfree_diffusion_models_pytorch_tpu_torch.utils.weights import (
-        init_params,
-        load_jax_npz,
-    )
+    from aliasfree_diffusion_models_pytorch_tpu_torch.utils.weights import init_params
 
     config = config_from_args(args)
-    if args.random_weights:
-        state = init_params(config, config.seed)
-    else:
-        config = recover_base_width(config, args.root)
-        state = load_jax_npz(config.checkpoint_path(args.root), ema=config.use_ema)
     device = torch.device(args.device)
-    model = build_model(config, device=device, state_dict=state)
+    if args.random_weights:
+        model = build_model(config, device=device, state_dict=init_params(config, config.seed))
+    else:
+        model = _load_model_params(config, args.root, device)
     d = Diffusion(noise_steps=config.noise_steps, img_size=config.image_size, device=device)
     generator = torch.Generator(device=device).manual_seed(config.seed)
     cond = dict(labels=args.label, cfg_scale=args.cfg_scale, theta=args.theta)
@@ -193,6 +229,83 @@ def run_train(args) -> list[float]:
     return train(config, dl, root=args.root, device=args.device, resume=args.resume)
 
 
+def run_ddpm(args) -> dict:
+    """The ``run`` subcommand: ``tasks.ddpm_run``'s result dict."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.tasks import ddpm_run
+
+    return ddpm_run(config_from_args(args), root=args.root, device=args.device)
+
+
+def run_sweep(args) -> list[dict]:
+    """The ``sweep`` subcommand: one full ``ddpm_run`` per variant, each in
+    its own run-name tree."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.tasks import ddpm_run
+
+    results = []
+    for v in (int(s) for s in args.variants.split(",")):
+        cfg_v = config_from_args(argparse.Namespace(**{**vars(args), "variant": v}))
+        print(f"=== sweep: variant {v} -> {cfg_v.run_name} ===")
+        results.append(ddpm_run(cfg_v, root=args.root, device=args.device))
+    return results
+
+
+def run_rotate(args) -> str:
+    """The ``rotate`` subcommand: returns the path of the video or GIF."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.tasks import rotation_video
+
+    start, stop, count = (float(v) for v in args.thetas.split(":"))
+    return rotation_video(
+        config_from_args(args), np.linspace(start, stop, int(count)), args.out,
+        root=args.root, fps=args.fps, save_sweep=args.save_sweep, device=args.device,
+    )
+
+
+def run_shift(args) -> list[np.ndarray]:
+    """The ``shift`` subcommand: the per-shift uint8 batches; their grid goes
+    to ``args.out``."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.tasks import shift_results
+    from aliasfree_diffusion_models_pytorch_tpu_torch.utils.io import save_image_grid
+
+    shifts = [int(s) for s in args.shifts.split(",")]
+    outs = shift_results(config_from_args(args), shifts, root=args.root, device=args.device)
+    save_image_grid(np.concatenate(outs, axis=0), args.out)
+    return outs
+
+
+def run_eval(args) -> dict:
+    """The ``eval`` subcommand: the metric dict of two folders of PNGs."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.eval import evaluate_folders
+
+    return evaluate_folders(args.generated_dir, args.reference_dir, limit=args.limit,
+                            save_path=args.save, device=args.device)
+
+
+def run_probe(args) -> dict:
+    """The ``probe`` subcommand: the probe's result dict."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch import probes
+
+    if args.which == "exp":
+        result = probes.run_exp_micro(args.iters or 50, args.device, small=args.small)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=2)
+            print(f"wrote {args.out}")
+        return result
+    return probes.run_attn_headpack(args.iters or 20, args.device, args.out, small=args.small)
+
+
+def info_text() -> str:
+    """The ``info`` subcommand's report: torch and CUDA versions, and every
+    visible device with its memory."""
+    lines = [f"torch: {torch.__version__}  cuda: {torch.version.cuda}  "
+             f"available: {torch.cuda.is_available()}  devices: {torch.cuda.device_count()}"]
+    for i in range(torch.cuda.device_count()):
+        props = torch.cuda.get_device_properties(i)
+        lines.append(f"  cuda:{i} {props.name}  {props.total_memory / 2**30:.1f} GiB  "
+                     f"sm_{props.major}{props.minor}  {props.multi_processor_count} SMs")
+    return "\n".join(lines)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     # train narrates its progress through logging.info; the root stays at WARNING.
@@ -216,6 +329,31 @@ def main(argv=None) -> int:
     if args.cmd == "sample":
         run_sample(args)
         print(f"wrote {args.out}")
+        return 0
+    if args.cmd == "info":
+        print(info_text())
+        return 0
+    if args.cmd == "eval":
+        print(json.dumps(run_eval(args), indent=2))
+        return 0
+    if args.cmd == "run":
+        run_ddpm(args)
+        return 0
+    if args.cmd == "sweep":
+        run_sweep(args)
+        return 0
+    if args.cmd == "rotate":
+        path = run_rotate(args)
+        if args.save_sweep:
+            print(f"wrote sweep {args.save_sweep}")
+        print(f"wrote {path}")
+        return 0
+    if args.cmd == "shift":
+        run_shift(args)
+        print(f"wrote {args.out}")
+        return 0
+    if args.cmd == "probe":
+        run_probe(args)
         return 0
     return 1
 

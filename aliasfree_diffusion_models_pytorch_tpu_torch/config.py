@@ -155,3 +155,18 @@ class TrainConfig:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+    def settings_text(self) -> str:
+        """Human-readable settings dump, one ``key: value`` per line: the
+        ``settings_{dataset}_{variant}.txt`` snapshot that ``ddpm_run``
+        writes. (The JAX package appends its implementation switches; the
+        port has none.)"""
+        d = dataclasses.asdict(self)
+        f = d.pop("filters", None)
+        lines = [f"{k}: {v}" for k, v in d.items()]
+        filter_keys = ("kernel_size", "kaiser_beta", "omega_c_down", "omega_c_up")
+        if f is not None:
+            lines += [f"{k}: {v}" for k, v in f.items()]
+        else:
+            lines += [f"{k}: None" for k in filter_keys]
+        return "\n".join(lines)

@@ -5,6 +5,7 @@ NCHW here (PyTorch's convolution layout); the JAX package's functions take
 NHWC. Each op is the same cross-correlation with the same padding as its JAX
 counterpart:
 
+* ``depthwise_fir``: SAME depthwise FIR, every channel with the same taps;
 * ``downsample2x``: SAME depthwise FIR and decimation as one strided conv;
 * ``upsample2x``: zero-stuffing by ``factor`` then a SAME depthwise FIR. The
   JAX version folds the stuffing into ``lhs_dilation``; here the stuffed
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "same_pad",
+    "depthwise_fir",
     "downsample2x",
     "upsample2x",
     "filtered_gelu",
@@ -53,6 +55,14 @@ def _depthwise(x: torch.Tensor, taps: torch.Tensor, stride: int) -> torch.Tensor
     c = x.shape[1]
     w = taps[None, None].expand(c, 1, *taps.shape)
     return F.conv2d(x, w, stride=stride, groups=c)
+
+
+def depthwise_fir(x: torch.Tensor, taps) -> torch.Tensor:
+    """SAME depthwise FIR (NCHW): every channel cross-correlated with the same
+    2D taps, no decimation."""
+    t = _taps(taps, x)
+    (hlo, hhi), (wlo, whi) = same_pad(t.shape[0]), same_pad(t.shape[1])
+    return _depthwise(F.pad(x, (wlo, whi, hlo, hhi)), t, 1)
 
 
 def downsample2x(x: torch.Tensor, taps, factor: int = 2) -> torch.Tensor:

@@ -24,7 +24,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
 # kernel name -> source file in csrc/
-SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
+           "exp_chain": "exp_chain.cu", "qk_rowsum": "qk_rowsum.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

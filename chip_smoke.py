@@ -5,8 +5,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. names the card (``nvidia-smi`` name and power limit, torch's device name);
 2. builds every hand-written kernel from ``csrc/`` with nvcc (sm_90a), all
-   sources at once (``flash_fwd``, ``flash_bwd``), and prints the build
-   seconds and ptxas' register report;
+   sources at once (``flash_fwd``, ``flash_bwd``, ``exp_chain``,
+   ``qk_rowsum``), and prints the build seconds and ptxas' register report;
 3. holds each kernel against its plain PyTorch version on the card, in bf16
    and f32, with and without softmax stats, and times kernel, plain version
    and the one-call PyTorch yardstick (``scaled_dot_product_attention`` and
@@ -16,7 +16,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the backward at every shape of the training path (the same six blocks at
    batch 256, the six blocks of the 64-px step at batch 32, S up to 4096, and
    S=16384 of a 128-px step at batch 2), with the stats-mode forward that
-   feeds it checked at the same shapes;
+   feeds it checked at the same shapes; then the two probe kernels:
+   ``exp_chain`` at the probe's full (64, 1024, 1024) array for every op
+   (chain 16, and a single application), with each op's bound, its cost per
+   application off the slope against ``copy`` and the ``fastexp2`` accuracy
+   line; ``qk_rowsum`` (tensor-core and CUDA-core variants) at the probe's
+   three shapes, with the ``bmm`` + ``sum`` yardstick, the two ratios and the
+   verdict;
 4. runs the full-width Config-D UNet forward (n=16) in f32 on the card
    against the same weights on the CPU (TF32 off), and in bf16, counting 6
    kernel launches per forward; DDIM-5 on the card against the CPU with the
@@ -36,7 +42,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    64 px, which sends S=4096 through the backward): ms per step, images per
    second, kernels per step and device busy share from torch.profiler, peak
    memory;
-8. prints one JSON line of every ported kernel, the card line, and last
+8. drives the study path through the CLI in a scratch ``--root``: ``probe
+   exp`` and ``probe headpack``; ``run`` (the whole ``ddpm_run`` pipeline at
+   batch 256, 200 noise steps, 32 generated PNGs); ``rotate`` and ``shift``
+   from its checkpoint (every member of a sweep starts from the same noise);
+   ``eval`` of the generated PNGs against exported training PNGs on the card
+   and on the CPU; one Inception-v3 forward at batch 16 with seeded random
+   weights, card against CPU;
+9. prints one JSON line of every ported kernel, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the ``ok``
@@ -58,11 +71,17 @@ import torch
 OUT_DIR = os.path.join("build", "chip_smoke")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s; bf16 tensor
-# cores 989 TFLOP/s; f32 outside the tensor cores 67 TFLOP/s. exp on the
-# special-function units: 3.9 T/s (FlashAttention-3 paper, H100 SXM5).
+# cores 989 TFLOP/s; f32 outside the tensor cores 67 TFLOP/s, which is 33.5 T
+# FMA instructions a second: 132 SMs x 128 lanes at the boost clock, 1.98 GHz.
+# The special-function units give 16 results per SM and clock where the FMA
+# pipes give 128, so their peak at the same clock is an eighth of that,
+# 4.19 T/s. (The FlashAttention-3 paper's 3.9 T/s is the same unit at a lower
+# clock; a bound has to take both peaks at one clock.) The bounds of
+# flash_fwd and flash_bwd use the same constant for their exp term.
 HBM_BYTES_PER_S = 3.35e12
 MATMUL_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-EXP_PER_S = 3.9e12
+FMA_PER_S = MATMUL_FLOPS_PER_S[torch.float32] / 2  # f32 instructions: 2 FLOPs per FMA
+EXP_PER_S = FMA_PER_S / 8
 
 # (block, S, C) of the six attention blocks at image 32, base width 32.
 ATTN_SHAPES = [("sa1", 256, 64), ("sa2", 64, 128), ("sa3", 16, 128),
@@ -94,6 +113,55 @@ ATTN_SHAPES_128 = [("sa6", 16384, 128)]
 # The plain backward holds about six S×S f32 arrays per (batch, head): it is
 # compared, and timed, at the largest batch that keeps one of them under this.
 PLAIN_SS_BYTES = 5 * 2**30
+
+
+# The exp probe (benchmarks/exp_micro.py): array, chain length, and per op the
+# least work of ONE application on this run's data as (special-function
+# results, f32 instructions on the FMA pipes), the subtract of the chain
+# included. exp/exp2/__expf: one ex2; tanh and logistic: an ex2 and a
+# reciprocal; erf: beyond |x| = 0.93, where the chain sits after its first
+# application, a polynomial and one ex2; fastexp2: multiply, round, subtract,
+# three FMAs, the scale and the chain's subtract, no special function.
+EXP_SHAPE = (64, 1024, 1024)
+EXP_CHAIN = 16
+EXP_OP_WORK = {"copy": (0, 1), "mul2": (0, 1), "poly4": (0, 5), "exp": (1, 2), "exp2": (1, 1),
+               "fastexp2": (0, 8), "tanh": (2, 2), "erf": (1, 8), "rsqrt1p": (1, 2),
+               "logistic": (2, 3), "exp_fast": (1, 2)}
+# Kernel vs plain version of a chain: max |difference| over the finite entries
+# as a share of the tensor's own largest |entry|, the port's f32 rule of 2e-5
+# unless stated. Every op(acc) is of order 1 before the chain subtracts 1, so
+# each application rounds by ulps of 1 (6e-8) whatever the size the chain
+# ends at, and the ops whose chains end small get a limit of their own:
+#  exp, exp_fast: the chain creeps towards the fixed point 0 of e^x − 1 and
+#   ends at 0.11, errors neither grow nor shrink there, sixteen roundings and
+#   sixteen times __expf's 2 ulp against torch.exp add up to 2e-6 → 1e-4;
+#  exp2: 2^x − 1 contracts by ln 2 per application and ends at 1.9e-3, the
+#   damped roundings add up to 2e-7 → 1e-3;
+#  fastexp2: its polynomial jumps by 5.5e-5 of its value where x·log2e
+#   crosses a half-integer (p(0.5) against 2·p(−0.5)), and an input one ulp
+#   apart (FMA in the kernel, two roundings in the plain version) lands on the
+#   other side of such a jump for a few of the 2^26 elements; a few jumps on
+#   a chain that ends at 0.11 → 1e-3.
+# A kernel that applied its op 15 times is off by 5% (exp), 45% (exp2).
+# Two chains end where no share can be taken. rsqrt1p − 1 converges
+# quadratically to exactly 0, where kernel and plain version must be equal:
+# it is held at chain 16 without the subtract as well, where it ends at 0.786.
+# poly4 overflows to −inf on every element after three applications: the
+# kernel must give −inf there too, and its finite values are held at chain 1.
+EXP_REL_TOL = {op: 2e-5 for op in EXP_OP_WORK} | {
+    "exp": 1e-4, "exp_fast": 1e-4, "exp2": 1e-3, "fastexp2": 1e-3}
+# One application ends at order 1 for every op: the f32 rule, and for fastexp2
+# one jump of its polynomial.
+EXP_REL_TOL_ONE = {op: 2e-5 for op in EXP_OP_WORK} | {"fastexp2": 1e-4}
+
+# The head-packing probe (benchmarks/attn_headpack.py): (n, s, d) as launched.
+# (b) is (a)'s 1024 heads packed four at a time into block-diagonal operands.
+QK_SHAPES = {"perhead_d8": (1024, 1024, 8), "blockdiag_hd32": (256, 4096, 32),
+             "perhead_d128": (1024, 1024, 128)}
+QK_HEADS = 4
+# f32 sums of 1024-4096 x d exact bf16 products, in another order (and, on the
+# tensor cores, through their own adder tree): a share of the largest entry.
+QK_REL_TOL = 2e-5
 
 
 def log(msg: str) -> None:
@@ -317,6 +385,176 @@ def phase_bwd_kernel(fa) -> dict:
     return dict(rows=rows, max_err=max_err, max_rel=max_rel)
 
 
+def chain_errors(got, ref) -> tuple[float, float, float]:
+    """(max |got − ref| over the entries where ref is finite, the same as a
+    share of the largest finite |ref|, share of finite entries). Where ref is
+    not finite (poly4 overflows to −inf), got must equal it; where ref is 0
+    throughout (rsqrt1p's chain), any difference is an infinite share."""
+    finite = torch.isfinite(ref)
+    check(bool(((got == ref) | (torch.isnan(got) & torch.isnan(ref)))[~finite].all()),
+          "non-finite entries differ")
+    if not bool(finite.any()):
+        return 0.0, 0.0, 0.0
+    err = (got[finite] - ref[finite]).abs().max().item()
+    largest = ref[finite].abs().max().item()
+    rel = err / largest if largest > 0 else (0.0 if err == 0 else math.inf)
+    return err, rel, finite.float().mean().item()
+
+
+def phase_exp_chain(kp, probes) -> dict:
+    """exp_chain vs its plain version at the probe's full array, every op."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # softmax-like domain: logits − max <= 0 (exp_micro.py:53)
+    x = -torch.randn(EXP_SHAPE, generator=gen, device="cuda").abs() * 5
+    n = x.numel()
+    bytes_ms = 1e3 * 2 * n * 4 / HBM_BYTES_PER_S
+    rows = []
+    for op in kp.OPS:
+        got = kp.exp_chain(x, op, EXP_CHAIN)
+        ref = kp.exp_chain_plain(x, op, EXP_CHAIN)
+        torch.cuda.synchronize()
+        err, rel, finite = chain_errors(got, ref)
+        # one application through the runtime-loop instantiation, on a slice
+        err1, rel1, _ = chain_errors(kp.exp_chain(x[:4], op, 1), kp.exp_chain_plain(x[:4], op, 1))
+        del got, ref
+        held = [("chain 16", err, rel, EXP_REL_TOL[op]), ("chain 1", err1, rel1, EXP_REL_TOL_ONE[op])]
+        if op == "rsqrt1p":  # its chain ends at 0: the unrolled chain without the subtract too
+            err_ns, rel_ns, _ = chain_errors(
+                kp.exp_chain(x, op, EXP_CHAIN, subtract=False),
+                kp.exp_chain_plain(x, op, EXP_CHAIN, subtract=False))
+            held.append(("chain 16 without the subtract", err_ns, rel_ns, EXP_REL_TOL[op]))
+            log(f"  rsqrt1p chain 16 without the subtract: err {err_ns:.1e} "
+                f"({rel_ns:.1e} of max |ref|)")
+        for name, e, r, tol in held:
+            check(r <= tol, f"exp_chain {op} {name}: err {e} is {r} of max |ref| > {tol}")
+        sfu, fma = EXP_OP_WORK[op]
+        ops_ms = 1e3 * n * EXP_CHAIN * max(sfu / EXP_PER_S, fma / FMA_PER_S)
+        row = dict(op=op, shape=list(EXP_SHAPE), chain=EXP_CHAIN, max_abs_err=err,
+                   max_rel_err=rel, max_rel_err_chain1=rel1, rel_tol=EXP_REL_TOL[op],
+                   finite_share=finite,
+                   ms=device_ms(lambda: kp.exp_chain(x, op, EXP_CHAIN), iters=20),
+                   plain_ms=device_ms(lambda: kp.exp_chain_plain(x, op, EXP_CHAIN), iters=3),
+                   library_ms=device_ms(lambda: x.clone(), iters=20) if op == "copy" else None,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        rows.append(row)
+    copy_ms = rows[0]["ms"]
+    for row in rows:
+        # the probe's reading: cost of one application off the slope against copy
+        row["per_application_ps"] = (row["ms"] - copy_ms) * 1e9 / (EXP_CHAIN * n)
+        row["applications_per_s"] = EXP_CHAIN * n / row["ms"] * 1e3
+        log(f"  {row['op']:9s} err {row['max_abs_err']:.1e} ({row['max_rel_err']:.1e} of "
+            f"max |ref|, limit {row['rel_tol']:.0e}; one application {row['max_rel_err_chain1']:.1e}; "
+            f"finite {row['finite_share']:.3f})  device ms: kernel {row['ms']:.4f} "
+            f"plain {row['plain_ms']:8.3f} bound {row['bound_ms']:.4f} ({row['bound_by']})"
+            f"  {row['applications_per_s'] / 1e12:.2f} T applications/s; per application "
+            f"above copy: {row['per_application_ps']:.3f} ps"
+            + (f"  x.clone() {row['library_ms']:.4f}" if row["library_ms"] else ""))
+    # The compiler must not fold a chain. At chain 16 poly4 hides behind the
+    # memory traffic, so it is timed at chain 64 too (the runtime-loop
+    # instantiation): its five instructions per application must cost more
+    # than mul2's one, and four times the applications more than the 16.
+    poly64 = device_ms(lambda: kp.exp_chain(x, "poly4", 64), iters=10)
+    mul64 = device_ms(lambda: kp.exp_chain(x, "mul2", 64), iters=10)
+    ms = {r["op"]: r["ms"] for r in rows}
+    log(f"  chain 64: poly4 {poly64:.4f} ms, mul2 {mul64:.4f} ms ({poly64 / mul64:.2f}x; "
+        f"{poly64 / ms['poly4']:.2f}x of poly4 at chain 16); chain 16: poly4 / mul2 "
+        f"{ms['poly4'] / ms['mul2']:.3f}, exp / copy {ms['exp'] / ms['copy']:.3f}")
+    check(poly64 > 1.3 * mul64 and poly64 > 2.0 * ms["poly4"],
+          f"poly4 at chain 64 ({poly64} ms) against mul2's ({mul64} ms) and its own at "
+          f"chain 16 ({ms['poly4']} ms): the chain was folded")
+    check(ms["exp"] > 1.2 * ms["copy"], "exp's chain costs no more than copy's")
+    del x
+    torch.cuda.empty_cache()
+    rel = probes.fastexp2_max_rel_err("cuda")
+    log(f"  fastexp2 max_rel_err vs exp on [-80, 0]: {rel:.2e}")
+    check(rel < 1e-3, f"fastexp2 accuracy {rel}")
+    return dict(rows=rows, fastexp2_max_rel_err=rel, poly4_chain64_ms=poly64,
+                mul2_chain64_ms=mul64)
+
+
+def phase_qk_rowsum(kp) -> dict:
+    """qk_rowsum (both variants) vs its plain version at the probe's three shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    k8 = qt8 = None
+    for name, (n, s, d) in QK_SHAPES.items():
+        if name == "blockdiag_hd32":
+            k, qt = kp.block_diagonal_pack(k8, qt8, QK_HEADS)
+            check(tuple(k.shape) == (n, s, d), f"packed shape {tuple(k.shape)}")
+        else:
+            k = torch.randn((n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+            qt = torch.randn((n, d, s), generator=gen, device="cuda").to(torch.bfloat16)
+            if name == "perhead_d8":
+                k8, qt8 = k, qt
+        ref = kp.qk_rowsum_plain(k, qt)
+        row = dict(shape=name, n=n, s=s, d=d, rel_tol=QK_REL_TOL)
+        if name == "blockdiag_hd32":
+            # the diagonal blocks hold the heads' own logits: same sums as (a)
+            per_head = kp.qk_rowsum_plain(k8, qt8).reshape(n, 1, s)
+            check(errors(ref, per_head)[1] <= QK_REL_TOL, "packed operands against per-head sums")
+        for variant in kp.QK_VARIANTS:
+            got = kp.qk_rowsum(k, qt, variant)
+            torch.cuda.synchronize()
+            err, rel = errors(got, ref)
+            check(rel <= QK_REL_TOL, f"qk_rowsum {name} {variant}: err {err} is {rel} of "
+                  f"max |out| > {QK_REL_TOL}")
+            row[f"{variant}_max_abs_err"], row[f"{variant}_max_rel_err"] = err, rel
+            row[f"{variant}_ms"] = device_ms(lambda: kp.qk_rowsum(k, qt, variant),
+                                             iters=20 if variant == "mma" else 5)
+        del ref
+        # The one-call yardstick writes the s x s logits to device memory, so it
+        # walks n in chunks that keep them under 1 GiB in bf16 (as the plain
+        # version does in f32): the time is the sum over the chunks.
+        chunk = max(1, min(n, 2**30 // (2 * s * s)))
+
+        def library():
+            return [torch.bmm(k[i:i + chunk], qt[i:i + chunk]).sum(1, dtype=torch.float32)
+                    for i in range(0, n, chunk)]
+
+        row["ms"], row["max_abs_err"] = row["mma_ms"], row["mma_max_abs_err"]
+        row["plain_ms"] = device_ms(lambda: kp.qk_rowsum_plain(k, qt), iters=2)
+        row["library_ms"] = device_ms(library, iters=3)
+        row["library_chunk"] = chunk
+        row["flops"] = 2.0 * n * s * s * d
+        row["bytes"] = 2 * n * s * d * 2 + n * s * 4
+        bytes_ms = 1e3 * row["bytes"] / HBM_BYTES_PER_S
+        ops_ms = 1e3 * row["flops"] / MATMUL_FLOPS_PER_S[torch.bfloat16]
+        row["bound_ms"], row["bound_by"] = max(bytes_ms, ops_ms), (
+            "bytes" if bytes_ms >= ops_ms else "operations")
+        rows.append(row)
+        log(f"  {name:15s} (n={n}, s={s}, d={d}) err mma {row['mma_max_abs_err']:.1e} "
+            f"({row['mma_max_rel_err']:.1e} of max) fma {row['fma_max_abs_err']:.1e} "
+            f"({row['fma_max_rel_err']:.1e})  device ms: mma {row['mma_ms']:.4f} "
+            f"({row['flops'] / row['mma_ms'] / 1e9:.1f} TFLOP/s) fma {row['fma_ms']:.4f} "
+            f"plain {row['plain_ms']:.3f} bmm+sum(chunks of {chunk}) {row['library_ms']:.3f} "
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+        del k, qt
+        torch.cuda.empty_cache()
+    # Beyond the probe's three shapes: the per-head product at the depths between
+    # 8 and 128 (tensor-core variant), to read the cost of depth off a line.
+    n, s, _ = QK_SHAPES["perhead_d8"]
+    sweep = []
+    for d in (16, 32, 64):
+        k = torch.randn((n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+        qt = torch.randn((n, d, s), generator=gen, device="cuda").to(torch.bfloat16)
+        err, rel = errors(kp.qk_rowsum(k, qt), kp.qk_rowsum_plain(k, qt))
+        check(rel <= QK_REL_TOL, f"qk_rowsum depth {d}: err {err} is {rel} of max |out|")
+        sweep.append(dict(n=n, s=s, d=d, max_abs_err=err, max_rel_err=rel,
+                          ms=device_ms(lambda: kp.qk_rowsum(k, qt), iters=20)))
+    by_depth = ([(r["d"], r["mma_ms"]) for r in rows if r["shape"] != "blockdiag_hd32"]
+                + [(r["d"], r["ms"]) for r in sweep])
+    log("  per-head (n=1024, s=1024) by depth, mma ms: "
+        + ", ".join(f"d={d}: {t:.4f}" for d, t in sorted(by_depth)))
+    ms = {r["shape"]: r["mma_ms"] for r in rows}
+    ratio = ms["blockdiag_hd32"] / ms["perhead_d8"]
+    depth = ms["perhead_d128"] / ms["perhead_d8"]
+    verdict = "REJECT head-packing" if ratio > 1.1 else "ACCEPT head-packing"
+    log(f"  packed_over_perhead {ratio:.2f}, d128_over_d8 {depth:.2f}: {verdict}")
+    return dict(rows=rows, depth_sweep=sweep, packed_over_perhead=ratio, d128_over_d8=depth,
+                verdict=verdict)
+
+
 def phase_unet(fa, weights, unet_mod, config) -> None:
     """Full-width Config-D forward: f32 card vs CPU, bf16 finite, 6 launches each."""
     import dataclasses
@@ -514,6 +752,194 @@ def phase_cli_train(fa, cli) -> list[dict]:
     return results
 
 
+STUDY_MODEL_FLAGS = ["--variant", "3", "--image-size", "32", "--image-channels", "3",
+                     "--compute-dtype", "bfloat16", "--f-kernel", "3", "--f-beta", "2",
+                     "--dataset", "CIFAR10", "--device", "cuda", "--noise-steps", "200"]
+STUDY_PROBE_ITERS = {"exp": 20, "headpack": 10}
+# Metric dicts of `eval` on the card against the CPU: the features agree to
+# f32 rounding (three convolutions with TF32 off), and the metrics are float64
+# functions of them; 32 samples in 256 dimensions leave both covariances
+# singular, so the matrix square root may amplify that rounding somewhat.
+# The absolute floor is for the KID's spread, which is 0 up to float64 noise
+# when every subset is the whole set.
+EVAL_RTOL, EVAL_ATOL = 1e-5, 1e-9
+# Inception features and logits on the card (TF32 off) against the CPU: f32
+# sums in another order through 94 convolutions, as a share of the largest entry.
+INCEPTION_REL_TOL = 1e-5
+
+
+def phase_study(fa, kp, cli) -> dict:
+    """The study path through the CLI: probes, run, rotate, shift, eval, and
+    one Inception forward."""
+    import shutil
+
+    from aliasfree_diffusion_models_pytorch_tpu_torch import eval_inception, probes, tasks
+    from aliasfree_diffusion_models_pytorch_tpu_torch.data import get_data
+    from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
+    from aliasfree_diffusion_models_pytorch_tpu_torch.eval import full_float32
+    from aliasfree_diffusion_models_pytorch_tpu_torch.utils.io import save_dataset_images
+
+    root = os.path.join(OUT_DIR, "study_root")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    parse = cli.build_parser().parse_args
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd, kp.exp_chain, kp.qk_rowsum)
+    results: dict = {}
+
+    def counted(name, fn):
+        """Runs fn with every launch counter set to 0 just before; returns its
+        value and records (fwd, bwd, exp_chain, qk_rowsum) launches and wall."""
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        results[name] = dict(wall_s=wall, launches=[c.launches for c in counters])
+        return value, results[name]["launches"], wall
+
+    # probes: each op or shape launches its kernel WARMUP + iters times
+    iters = STUDY_PROBE_ITERS["exp"]
+    exp_res, counts, wall = counted("probe_exp", lambda: cli.run_probe(parse(
+        ["probe", "exp", "--iters", str(iters), "--out", os.path.join(root, "exp_micro.json")])))
+    expect = len(kp.OPS) * (probes.WARMUP + iters) + 1  # + the accuracy line's launch
+    check(counts == [0, 0, expect, 0], f"probe exp: launches {counts}, expected exp_chain {expect}")
+    check(set(exp_res["ms"]) == set(kp.OPS) and exp_res["fastexp2_max_rel_err"] < 1e-3,
+          "probe exp result")
+    log(f"  probe exp: {wall:.2f} s, {expect} exp_chain launches")
+    iters = STUDY_PROBE_ITERS["headpack"]
+    head_res, counts, wall = counted("probe_headpack", lambda: cli.run_probe(parse(
+        ["probe", "headpack", "--iters", str(iters),
+         "--out", os.path.join(root, "attn_headpack.json")])))
+    per = probes.WARMUP + iters
+    # flash forward: the forward timing and the forward of forward+backward
+    check(counts == [2 * per, per, 0, 3 * per], f"probe headpack: launches {counts}, expected "
+          f"{[2 * per, per, 0, 3 * per]}")
+    for key in ("perhead_d8_ms", "blockdiag_hd32_ms", "perhead_d128_ms", "flash_fwd_ms",
+                "flash_fwdbwd_ms", "packed_over_perhead", "d128_over_d8", "verdict"):
+        check(key in head_res, f"probe headpack: no {key}")
+    log(f"  probe headpack: {wall:.2f} s, {3 * per} qk_rowsum launches, verdict {head_res['verdict']}")
+
+    # run: 512 synthetic images at batch 256 = 2 train steps; 200 noise steps.
+    res, counts, wall = counted("run", lambda: cli.run_ddpm(parse(
+        ["run", *STUDY_MODEL_FLAGS, "--batch-size", "256", "--image-gen-per-epoch", "0",
+         "--epochs", "1", "--gen-total", "32", "--gen-per-batch", "16", "--root", root])))
+    sampler = 6 * 199
+    # smoke forward + 2 train steps + (six-image demo, revert, two generation chunks)
+    check(counts == [6 + 12 + 4 * sampler, 12, 0, 0], f"run: launches {counts}, expected "
+          f"{[6 + 12 + 4 * sampler, 12, 0, 0]}")
+    for key in ("settings_path", "loss_csv"):
+        check(os.path.exists(res[key]), f"run: no {res[key]}")
+    check(os.path.exists(res["checkpoint"] + ".npz"), "run: no checkpoint")
+    pngs = [f for f in os.listdir(res["gen_dir"]) if f.endswith(".png")]
+    check(len(pngs) == 32, f"run: {len(pngs)} generated PNGs, expected 32")
+    check(os.path.exists(res["gen_dir"] + "_collage_0.png"), "run: no collage")
+    check(len(res["loss_all"]) == 1 and math.isfinite(res["loss_all"][0]), "run: loss")
+    log(f"  run: {wall:.2f} s, loss {res['loss_all'][0]:.4f}, launches fwd {counts[0]} bwd "
+        f"{counts[1]}, 32 PNGs in {res['gen_dir']}")
+
+    # rotate and shift: every member of a sweep must start from the same noise
+    # and cost the same launches. A spy on the samplers' noise source records
+    # each member's initial latent and the launch count at that moment.
+    firsts: list[tuple[torch.Tensor, int]] = []
+    plain_noise = Diffusion._noise
+
+    def spy(self, shape, step, generator, noise_fn):
+        out = plain_noise(self, shape, step, generator, noise_fn)
+        if step == 0:
+            firsts.append((out.clone(), fa.flash_attention_fwd.launches))
+        return out
+
+    sweep_path = os.path.join(root, "rotation_sweep.npz")
+    sweeps = {
+        "rotate": lambda: cli.run_rotate(parse(
+            ["rotate", *STUDY_MODEL_FLAGS, "--root", root, "--thetas=-90:90:3",
+             "--out", os.path.join(root, "rotation"), "--save-sweep", sweep_path])),
+        "shift": lambda: cli.run_shift(parse(
+            ["shift", *STUDY_MODEL_FLAGS, "--root", root, "--shifts=-8,0,8",
+             "--out", os.path.join(root, "shift_sweep.png")])),
+    }
+    for name, fn in sweeps.items():
+        firsts.clear()
+        Diffusion._noise = spy
+        try:
+            value, counts, wall = counted(name, fn)
+        finally:
+            Diffusion._noise = plain_noise
+        check(counts == [3 * sampler, 0, 0, 0], f"{name}: launches {counts}")
+        check(len(firsts) == 3, f"{name}: {len(firsts)} samplings, expected 3")
+        check(all(torch.equal(firsts[0][0], f) for f, _ in firsts[1:]),
+              f"{name}: the members did not start from the same noise")
+        starts = [c for _, c in firsts] + [counts[0]]
+        per_member = [b - a for a, b in zip(starts, starts[1:])]
+        check(per_member == [sampler] * 3, f"{name}: launches per member {per_member}")
+        log(f"  {name}: {wall:.2f} s, {counts[0]} launches, {per_member} per member, "
+            f"same initial noise for all three")
+        if name == "rotate":
+            check(os.path.exists(value), f"rotate: no {value}")
+            sweep = tasks.load_rotation_sweep(sweep_path)
+            check(sweep["finals"].shape == (3, 1, 32, 32, 3)
+                  and sweep["finals"].dtype == np.uint8, f"sweep finals {sweep['finals'].shape}")
+            check(not np.array_equal(sweep["finals"][0], sweep["finals"][2]),
+                  "rotate: -90 and +90 gave the same image")
+        else:
+            check(len(value) == 3 and value[0].shape == (4, 32, 32, 3), "shift outputs")
+            check(os.path.exists(os.path.join(root, "shift_sweep.png")), "no shift_sweep.png")
+
+    # eval: the 32 generated PNGs against 32 exported training PNGs.
+    _, dataset = get_data("CIFAR10", None, 32, 256, image_channels=3, seed=42)
+    orig_dir = os.path.join(root, "images", "original", "CIFAR10")
+    save_dataset_images(orig_dir, dataset.images[:32])
+    metrics = {}
+    for dev in ("cuda", "cpu"):
+        metrics[dev], _, wall = counted(f"eval_{dev}", lambda: cli.run_eval(parse(
+            ["eval", res["gen_dir"], orig_dir, "--device", dev,
+             "--save", os.path.join(root, f"eval_{dev}.txt")])))
+        log(f"  eval --device {dev}: {wall:.2f} s, {json.dumps(metrics[dev])}")
+    check(list(metrics["cuda"]) == list(metrics["cpu"]), "eval: keys differ")
+    check(metrics["cuda"]["feature_space"] == "random-conv-v2", "eval: feature space")
+    worst = 0.0
+    for key, a in metrics["cuda"].items():
+        if isinstance(a, float):
+            b = metrics["cpu"][key]
+            check(math.isfinite(a), f"eval: {key} = {a}")
+            check(abs(a - b) <= EVAL_ATOL + EVAL_RTOL * max(abs(a), abs(b)),
+                  f"eval: {key} card {a} vs cpu {b}")
+            worst = max(worst, abs(a - b) / max(abs(a), abs(b), 1e-30)
+                        if abs(a - b) > EVAL_ATOL else 0.0)
+    log(f"  eval card vs cpu: worst relative difference {worst:.2e} (limit {EVAL_RTOL})")
+    results["eval_metrics"] = metrics["cuda"]
+    results["eval_worst_rel"] = worst
+
+    # One Inception-v3 forward at batch 16, seeded random weights, f32.
+    params = eval_inception.params_from_state_dict(eval_inception.random_state_dict(0))
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(-1, 1, (16, 3, 299, 299)).astype(np.float32))
+    with torch.inference_mode(), full_float32():
+        t0 = time.perf_counter()
+        ref = eval_inception.inception_forward(params, x)
+        cpu_s = time.perf_counter() - t0
+        on_card = {m: {leaf: t.cuda() for leaf, t in leaves.items()} for m, leaves in params.items()}
+        x_card = x.cuda()
+        got = eval_inception.inception_forward(on_card, x_card)
+        torch.cuda.synchronize()
+        card_ms = call_ms(lambda: eval_inception.inception_forward(on_card, x_card), iters=5)
+    rels = []
+    for name, g, r in zip(("features", "logits"), got, ref):
+        check(tuple(g.shape) == ((16, 2048) if name == "features" else (16, 1008)), name)
+        err, rel = errors(g.cpu(), r)
+        check(rel <= INCEPTION_REL_TOL, f"inception {name}: err {err} is {rel} of max")
+        rels.append(rel)
+    log(f"  inception forward, batch 16, f32: card vs cpu features {rels[0]:.1e} logits "
+        f"{rels[1]:.1e} of max (limit {INCEPTION_REL_TOL}); card {card_ms:.1f} ms per forward "
+        f"(CUDA events), cpu {cpu_s:.1f} s")
+    results["inception"] = dict(rel_features=rels[0], rel_logits=rels[1], card_ms=card_ms)
+    results["probe_exp_result"] = exp_res
+    results["probe_headpack_result"] = head_res
+    return results
+
+
 def profile_step(step, state, batch) -> dict:
     """Device time and kernel count of one train step (torch.profiler)."""
     events, wall = device_events(lambda: step(state, batch)[1].item())
@@ -589,9 +1015,10 @@ def phase_step_time(fa, config) -> list[dict]:
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false — needs a CUDA GPU")
-    from aliasfree_diffusion_models_pytorch_tpu_torch import cli
+    from aliasfree_diffusion_models_pytorch_tpu_torch import cli, probes
     from aliasfree_diffusion_models_pytorch_tpu_torch.models import unet as unet_mod
     from aliasfree_diffusion_models_pytorch_tpu_torch.ops import flash_attention as fa
+    from aliasfree_diffusion_models_pytorch_tpu_torch.ops import probes as kp
     from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels, weights
 
     # Every f32 comparison below runs in full f32 on the card.
@@ -630,6 +1057,12 @@ def main() -> int:
     log("[2b] backward kernel vs plain version at the training-path shapes")
     bres = phase_bwd_kernel(fa)
     done("backward kernel")
+    log("[2c] exp_chain vs plain version, every op at the probe's full array")
+    eres = phase_exp_chain(kp, probes)
+    done("exp_chain kernel")
+    log("[2d] qk_rowsum vs plain version at the probe's three shapes")
+    qres = phase_qk_rowsum(kp)
+    done("qk_rowsum kernel")
 
     config = cli.config_from_args(cli.build_parser().parse_args(
         ["sample", "--variant", "3", "--image-size", "32", "--image-channels", "3",
@@ -650,6 +1083,9 @@ def main() -> int:
     log("[6] steady-state train step")
     step_rows = phase_step_time(fa, config)
     done("step time")
+    log("[7] study path: CLI probe, run, rotate, shift, eval; Inception forward")
+    study = phase_study(fa, kp, cli)
+    done("study path")
 
     main_rows = [r for r in kres["rows"] if r["n"] == 16 and r["dtype"] == "bfloat16"]
     main_bound, main_bound_by = bound(
@@ -705,7 +1141,60 @@ def main() -> int:
         "shapes": bres["rows"],
         "main_path_runs": train_runs,
         "train_step": step_rows,
-    }]}
+    }, {
+        "name": "exp_chain",
+        "route": "cuda",
+        "source": "aliasfree_diffusion_models_pytorch_tpu_torch/csrc/exp_chain.cu",
+        "replaces": "benchmarks/exp_micro.py:96",
+        "launches": study["probe_exp"]["launches"][2],
+        "max_abs_err": max(r["max_abs_err"] for r in eres["rows"]),
+        # times: one pass of every op's 16-application chain over the probe's
+        # array, summed over the eleven ops (what one iteration of `probe exp`
+        # runs); no single PyTorch call computes a chained op
+        "ms": sum(r["ms"] for r in eres["rows"]),
+        "plain_ms": sum(r["plain_ms"] for r in eres["rows"]),
+        "bound_ms": sum(r["bound_ms"] for r in eres["rows"]),
+        "bound_by": "operations" if sum(r["bound_by"] == "operations" for r in eres["rows"])
+                    > len(eres["rows"]) // 2 else "bytes",
+        "library_ms": None,
+        "max_rel_err": max(r["max_rel_err"] for r in eres["rows"]),
+        "rel_tol_by_op": EXP_REL_TOL,
+        "kernels_per_launch": 1,
+        "shapes": eres["rows"],
+        "fastexp2_max_rel_err": eres["fastexp2_max_rel_err"],
+        "poly4_chain64_ms": eres["poly4_chain64_ms"],
+        "mul2_chain64_ms": eres["mul2_chain64_ms"],
+        "main_path_runs": {"probe_exp": study["probe_exp"],
+                           "result": study["probe_exp_result"]},
+    }, {
+        "name": "qk_rowsum",
+        "route": "cuda",
+        "source": "aliasfree_diffusion_models_pytorch_tpu_torch/csrc/qk_rowsum.cu",
+        "replaces": "benchmarks/attn_headpack.py:84",
+        "launches": study["probe_headpack"]["launches"][3],
+        "max_abs_err": max(max(r["mma_max_abs_err"], r["fma_max_abs_err"])
+                           for r in qres["rows"]),
+        # times: the default (tensor-core) variant at the probe's three shapes,
+        # summed; the yardstick is bmm + sum per chunk of n (see the rows)
+        "ms": sum(r["ms"] for r in qres["rows"]),
+        "plain_ms": sum(r["plain_ms"] for r in qres["rows"]),
+        "bound_ms": sum(r["bound_ms"] for r in qres["rows"]),
+        "bound_by": "operations" if sum(1e3 * r["flops"] / MATMUL_FLOPS_PER_S[torch.bfloat16]
+                                        for r in qres["rows"])
+                    > sum(1e3 * r["bytes"] / HBM_BYTES_PER_S for r in qres["rows"]) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in qres["rows"]),
+        "max_rel_err": max(max(r["mma_max_rel_err"], r["fma_max_rel_err"])
+                           for r in qres["rows"]),
+        "rel_tol": QK_REL_TOL,
+        "kernels_per_launch": 1,
+        "shapes": qres["rows"],
+        "depth_sweep": qres["depth_sweep"],
+        "packed_over_perhead": qres["packed_over_perhead"],
+        "d128_over_d8": qres["d128_over_d8"],
+        "verdict": qres["verdict"],
+        "main_path_runs": {"probe_headpack": study["probe_headpack"],
+                           "result": study["probe_headpack_result"]},
+    }], "study_path": {k: v for k, v in study.items() if not k.startswith("probe_")}}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)  # the nvidia-smi line as it printed it
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,6 +13,19 @@ atol 1e-5 for the forward, 2e-5 for the gradients. In bf16 kernel and plain
 version round p, dS and the result to bf16 from f32 values that differ in the
 last bits, so entries land one bf16 ulp apart (at most 2^-7 of the entry):
 each tensor within 2^-6 of its largest entry, two ulps there, at every S.
+
+The probe kernels: ``exp_chain`` within 2e-5 of its plain version's largest
+|entry|. Every op(acc) is of order 1 before the chain subtracts 1, so each
+application rounds by ulps of 1 whatever the size the chain ends at, and the
+chains that end small get their own limit at 16 applications: ``exp`` and
+``exp_fast`` 1e-4 (they end at 0.11; sixteen roundings and ``__expf``'s 2 ulp
+add up to 2e-6), ``exp2`` 1e-3 (it ends at 2e-3). ``fastexp2`` gets 1e-4 for
+one application and 1e-3 for a chain (its polynomial jumps by 5.5e-5 of its
+value where x·log2e crosses a half-integer, and the kernel's FMAs put a few
+inputs on the other side of such a jump; a chain ends at 0.11 to 0.3). ``rsqrt1p``'s chain ends at exactly 0, where kernel and plain version
+must be equal, so its unrolled chain is also held without the subtract, where
+it ends at 0.786. ``qk_rowsum`` within 2e-5 of the largest entry (f32 sums of
+exact bf16 products in another order).
 """
 
 import numpy as np
@@ -20,6 +33,7 @@ import pytest
 import torch
 
 from aliasfree_diffusion_models_pytorch_tpu_torch.ops import flash_attention as fa
+from aliasfree_diffusion_models_pytorch_tpu_torch.ops import probes as kp
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +121,81 @@ def test_cuda_tensors_never_take_the_plain_version(card):
     with pytest.raises(ValueError):
         fa.flash_attention_bwd(z, z, z, z, torch.zeros(2, 8, device=card),
                                torch.ones(2, 8, device=card), z)
+
+
+def _chain_error(got, ref):
+    finite = torch.isfinite(ref)
+    assert torch.equal(got[~finite], ref[~finite])
+    if not finite.any():
+        return 0.0
+    err, largest = (got[finite] - ref[finite]).abs().max().item(), ref[finite].abs().max().item()
+    if largest == 0:  # rsqrt1p's chain: equal or fail
+        return 0.0 if err == 0 else float("inf")
+    return err / largest
+
+
+def _chain_limit(op, chain):
+    if op == "fastexp2":
+        return 1e-4 if chain == 1 else 1e-3  # one jump against a value of order 1, or of 0.11
+    return {"exp": 1e-4, "exp_fast": 1e-4, "exp2": 1e-3}.get(op, 2e-5) if chain == 16 else 2e-5
+
+
+@pytest.mark.parametrize("chain", [1, 16, 5])
+@pytest.mark.parametrize("op", kp.OPS)
+def test_exp_chain_kernel_matches_plain_version(card, op, chain):
+    rng = np.random.default_rng(chain)
+    # 4·8191 + 3 elements: the float4 body and a scalar tail of three
+    x = torch.from_numpy((-np.abs(rng.standard_normal(32767)) * 5).astype(np.float32)).to(card)
+    before = kp.exp_chain.launches
+    got = kp.exp_chain(x, op, chain)
+    assert kp.exp_chain.launches == before + 1
+    limit = _chain_limit(op, chain)
+    assert _chain_error(got, kp.exp_chain_plain(x, op, chain)) <= limit
+    if op == "rsqrt1p":
+        free = kp.exp_chain(x, op, chain, subtract=False)
+        assert _chain_error(free, kp.exp_chain_plain(x, op, chain, subtract=False)) <= 2e-5
+    if chain == 1:  # without the subtract a longer chain of exponentials overflows
+        single = kp.exp_chain(x, op, 1, subtract=False)
+        assert _chain_error(single, kp.exp_chain_plain(x, op, 1, subtract=False)) <= limit
+
+
+@pytest.mark.parametrize("variant", kp.QK_VARIANTS)
+@pytest.mark.parametrize("n,s,d", [(4, 128, 8), (3, 256, 16), (2, 512, 32), (2, 128, 64),
+                                   (4, 128, 128)])
+def test_qk_rowsum_kernel_matches_plain_version(card, n, s, d, variant):
+    rng = np.random.default_rng(s + d)
+    k = torch.from_numpy(rng.standard_normal((n, s, d)).astype(np.float32)).to(card).bfloat16()
+    qt = torch.from_numpy(rng.standard_normal((n, d, s)).astype(np.float32)).to(card).bfloat16()
+    before = kp.qk_rowsum.launches
+    got = kp.qk_rowsum(k, qt, variant)
+    assert kp.qk_rowsum.launches == before + 1
+    ref = kp.qk_rowsum_plain(k, qt)
+    assert got.shape == (n, 1, s) and got.dtype == torch.float32
+    assert (got - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+
+
+def test_qk_rowsum_block_diagonal_operands_on_the_card(card):
+    rng = np.random.default_rng(0)
+    k = torch.from_numpy(rng.standard_normal((8, 128, 8)).astype(np.float32)).to(card).bfloat16()
+    qt = torch.from_numpy(rng.standard_normal((8, 8, 128)).astype(np.float32)).to(card).bfloat16()
+    packed = kp.qk_rowsum(*kp.block_diagonal_pack(k, qt, 4))
+    per_head = kp.qk_rowsum(k, qt)
+    assert (packed.reshape(8, 1, 128) - per_head).abs().max().item() <= 2e-5 * per_head.abs().max().item()
+
+
+def test_probe_kernels_never_take_the_plain_version_on_the_card(card):
+    x = torch.zeros(64, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        kp.exp_chain(x.double(), "exp")
+    with pytest.raises(ValueError, match="contiguous"):
+        kp.exp_chain(torch.zeros(8, 8, device=card).t(), "exp")
+    with pytest.raises(ValueError, match="aligned"):
+        kp.exp_chain(x[1:], "exp")
+    k = torch.zeros(2, 128, 8, device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        kp.qk_rowsum(k.float(), k.float().transpose(1, 2).contiguous())
+    with pytest.raises(ValueError, match="multiple of"):
+        kp.qk_rowsum(k[:, :100].contiguous(), k[:, :100].transpose(1, 2).contiguous())
+    k4 = torch.zeros(2, 128, 4, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="depth"):
+        kp.qk_rowsum(k4, k4.transpose(1, 2).contiguous())

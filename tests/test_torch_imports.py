@@ -1,4 +1,5 @@
-"""The PyTorch port stands alone: no JAX, no flax, nothing of the JAX package.
+"""The PyTorch port stands alone: no JAX, no flax, nothing of the JAX package,
+and nothing of the repository's ``benchmarks``, ``bench`` or ``tests``.
 
 Checked twice: by importing every module of the port in a fresh interpreter
 and listing what got loaded, and by scanning the port's sources (and
@@ -15,7 +16,7 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = "aliasfree_diffusion_models_pytorch_tpu_torch"
 JAX_PKG = "aliasfree_diffusion_models_pytorch_tpu"
-FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "optax", "orbax"}
+FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "optax", "orbax", "benchmarks", "bench", "tests"}
 
 
 def _forbidden(module: str) -> bool:
@@ -32,6 +33,8 @@ def test_forbidden_matches_exact_names_only():
     assert not _forbidden(PORT)
     assert not _forbidden(PORT + ".ops.filters")
     assert not _forbidden("jaxtyping_free_module")
+    assert _forbidden("benchmarks.exp_micro") and _forbidden("bench") and _forbidden("tests.x")
+    assert not _forbidden("benchmark_utils") and not _forbidden(PORT + ".probes")
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -52,9 +55,13 @@ print(json.dumps({{"imported": names, "loaded": sorted(set(sys.modules) - before
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert {PORT + m for m in (".cli", ".config", ".data", ".diffusion", ".train",
                                ".models.unet", ".ops.flash_attention", ".utils.checkpoint",
-                               ".utils.kernels", ".utils.weights")} <= set(result["imported"])
+                               ".utils.kernels", ".utils.weights", ".ops.probes", ".probes",
+                               ".eval", ".eval_inception", ".tasks", ".utils.io",
+                               ".utils.plotting", ".utils.jax_random")} <= set(result["imported"])
     # importing the port builds no kernel and needs neither triton nor a CUDA toolchain
     assert "triton" not in result["loaded"]
+    # the image and plotting libraries are imported where they are used, not at import
+    assert not {"PIL", "matplotlib", "imageio"} & set(result["loaded"])
     bad = [m for m in result["loaded"] if _forbidden(m)]
     assert not bad, bad
 
@@ -70,6 +77,25 @@ def _imports(path: pathlib.Path):
 
 def test_port_sources_import_no_jax():
     files = sorted((REPO / PORT).rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    assert len(files) > 20
+    names = {f.name for f in files}
+    assert {"probes.py", "eval.py", "eval_inception.py", "tasks.py", "plotting.py",
+            "jax_random.py"} <= names
     bad = {str(f.relative_to(REPO)): m for f in files for m in _imports(f) if _forbidden(m)}
     assert not bad, bad
+
+
+def test_every_kernel_source_is_registered_and_present():
+    from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
+
+    assert set(kernels.SOURCES) == {"flash_fwd", "flash_bwd", "exp_chain", "qk_rowsum"}
+    on_disk = {p.name for p in kernels.CSRC.glob("*.cu")}
+    assert on_disk == set(kernels.SOURCES.values())
+    for name, source in kernels.SOURCES.items():
+        text = (kernels.CSRC / source).read_text()
+        assert f'extern "C" int afdm_{name}(' in text
+        assert "cudaGetLastError" in text
+        # a hand-written kernel: no library product, no PyTorch headers
+        for banned in ("cublas", "cutlass/gemm/device", "torch/extension.h", "ATen"):
+            assert banned not in text, (source, banned)
+    assert "--use_fast_math" not in kernels.NVCC_FLAGS and "-use_fast_math" not in kernels.NVCC_FLAGS
