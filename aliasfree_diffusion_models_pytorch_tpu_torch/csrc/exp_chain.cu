@@ -4,9 +4,10 @@
 // launches it over a (64, 1024, 1024) f32 array: per element, `chain` times,
 //   acc = op(acc) - 1
 // with op one of the probe's ten (copy, mul2, poly4, exp, exp2, fastexp2, tanh, erf, rsqrt1p,
-// logistic; :57-89, :125-136) and one more, exp_fast = __expf, the exponential that
-// flash_fwd.cu and flash_bwd.cu use. The probe answers what one exponential costs on this card
-// beside a polynomial on the FMA units: per-application cost is read off the slope against `copy`.
+// logistic; :57-89, :125-136) and one more, exp_fast = __expf, the exponential of the f32
+// kernels of flash_fwd.cu and flash_bwd.cu (their bf16 kernels take exp2). The probe answers
+// what one exponential costs on this card beside a polynomial on the FMA units: per-application
+// cost is read off the slope against `copy`.
 //
 // What bounds it: every element is read once and written once (8 bytes), so a single pass is
 // bound by memory bytes; sixteen chained applications make the arithmetic dominate for every op

@@ -7,24 +7,23 @@
 // (keys × queries) logits are formed in registers, tile by tile, and only their sums over the
 // keys leave the kernel: the S×S block never reaches device memory, so the time is the cost of
 // the products (and of one add per logit) and not of memory traffic. Summing K over the keys
-// first would give the same numbers and measure nothing; neither variant does that.
+// first would give the same numbers and measure nothing; the kernel does not do that.
 //
 // What bounds it: 2·n·s·s·d FLOPs against (2·n·s·d·2 + n·s·4) bytes: at s = 1024, d = 8 that is
-// 1000 FLOPs a byte, far above the card's 295, so the matrix unit (or, for the fma variant, the
-// f32 pipes) bounds it, and at d = 8 the one f32 add per logit weighs as much as the product.
+// 1000 FLOPs a byte, far above the card's 295, so the matrix unit bounds it, and at d = 8 the one
+// f32 add per logit weighs as much as the product.
 //
-// Two variants, one block per (n, strip of 128 queries), four warps:
-//  * fma: one thread per query holds its Qᵀ column in f32 registers; K streams through shared
-//    memory 32 keys at a time (f32, broadcast reads); each logit is d FMAs on the CUDA cores.
-//  * mma: the tensor cores, mma.sync.aligned.m16n8k8 (d = 8, no padding) or m16n8k16
-//    (d a multiple of 16), bf16 operands, f32 accumulators. Each warp owns 32 queries (four
-//    n-tiles of 8) and keeps their B fragments in registers for the whole loop. K streams
-//    through two shared-memory buffers of 64 or 128 keys, filled by cp.async (16 bytes a
-//    thread, the next tile in flight while this one is used) and shared by the four warps;
-//    ldmatrix turns a row tile of 16 keys into A fragments. Per row tile and n-tile the d/16
-//    (or one k8) MMAs start from a zero accumulator, so the accumulator holds that tile's
-//    logits, and these are added into per-thread f32 sums. A shuffle reduction over the eight
-//    row groups ends the loop. wgmma and TMA are later work.
+// Design: one block per (n, strip of 128 queries), four warps, on the tensor cores:
+// mma.sync.aligned.m16n8k8 (d = 8, no padding) or m16n8k16 (d a multiple of 16), bf16 operands,
+// f32 accumulators. Each warp owns 32 queries (four n-tiles of 8) and keeps their B fragments in
+// registers for the whole loop. K streams through two shared-memory buffers of 64 or 128 keys,
+// filled by cp.async (16 bytes a thread, the next tile in flight while this one is used) and
+// shared by the four warps; ldmatrix turns a row tile of 16 keys into A fragments. Per row tile
+// and n-tile the d/16 (or one k8) MMAs start from a zero accumulator, so the accumulator holds
+// that tile's logits, and these are added into per-thread f32 sums. A shuffle reduction over the
+// eight row groups ends the loop. wgmma and TMA are later work. The mma.sync, ldmatrix and
+// cp.async helpers are shared with the attention kernels (mma_bf16.cuh). The first port also
+// had a CUDA-core variant, 6.6x slower at d = 8 (PERF.md keeps its figures).
 //
 // s must be a multiple of 128; d one of 8, 16, 32, 64, 128.
 
@@ -32,91 +31,19 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using afdm::cp_async_16;
+using afdm::cp_async_commit;
+using afdm::cp_async_wait;
+using afdm::ldmatrix_x4;
+using afdm::mma_m16n8k16;
+using afdm::mma_m16n8k8;
 
 constexpr int kQBlock = 128;  // queries per block
 constexpr int kThreads = 128;
-constexpr int kKeyTile = 32;  // fma variant: keys per shared-memory tile
-
-// ---------------------------------------------------------------------------------------------
-// fma variant
-// ---------------------------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    qk_rowsum_fma_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ qt,
-                         float* __restrict__ out, int s) {
-  __shared__ float ks[kKeyTile][D];
-  const int n = blockIdx.y;
-  const int q = blockIdx.x * kQBlock + threadIdx.x;
-  const __nv_bfloat16* kn = k + static_cast<size_t>(n) * s * D;
-  const __nv_bfloat16* qn = qt + static_cast<size_t>(n) * D * s;
-
-  float qcol[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) qcol[d] = __bfloat162float(qn[static_cast<size_t>(d) * s + q]);
-
-  float sum = 0.0f;
-  for (int k0 = 0; k0 < s; k0 += kKeyTile) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kKeyTile * D; i += kThreads) {
-      ks[i / D][i % D] = __bfloat162float(kn[static_cast<size_t>(k0) * D + i]);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kKeyTile; ++j) {
-      float logit = 0.0f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) logit = fmaf(ks[j][d], qcol[d], logit);
-      sum += logit;
-    }
-  }
-  out[static_cast<size_t>(n) * s + q] = sum;
-}
-
-// ---------------------------------------------------------------------------------------------
-// mma variant
-// ---------------------------------------------------------------------------------------------
-
-// d = a·b + c on the tensor cores: a 16×16 (row-major), b 16×8 (column-major), bf16; c, d 16×8 f32.
-__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1, const float (&c)[4]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
-// The same with a 16×8 and b 8×8: depth 8 without padding.
-__device__ __forceinline__ void mma_m16n8k8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0,
-                                            const float (&c)[4]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %8, %9, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0), "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
-// Four 8×8 bf16 matrices from shared memory into fragment registers: lanes 8i..8i+7 give the
-// row addresses of matrix i (16 bytes a row).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void cp_async_16(__nv_bfloat16* smem, const __nv_bfloat16* gmem) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Two bf16 values of neighbouring depth for one query, packed as a B-fragment register
 // (the lower depth index in the lower half).
@@ -128,13 +55,11 @@ __device__ __forceinline__ uint32_t pack_qt(const __nv_bfloat16* qn, int s, int 
 
 constexpr int kNTiles = 4;  // n-tiles of 8 queries per warp: 32 queries a warp
 
-// Shapes of the K tiles in shared memory. A row is padded so that its stride is an odd number
-// of 16-byte units: the eight row addresses of an ldmatrix then fall into eight different bank
-// groups. (At depth 8 a row is one unit and needs no padding.)
+// Shapes of the K tiles in shared memory, rows padded as afdm::smem_stride says.
 template <int D>
 struct KTile {
-  static constexpr int kKeys = D <= 32 ? 128 : 64;   // keys per tile
-  static constexpr int kStride = D == 8 ? 8 : D + 8;  // elements per row in shared memory
+  static constexpr int kKeys = D <= 32 ? 128 : 64;          // keys per tile
+  static constexpr int kStride = afdm::smem_stride<D>();    // elements per row in shared memory
   static constexpr int kChunks = kKeys * D / 8;       // 16-byte chunks per tile
 };
 
@@ -265,36 +190,29 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D>
 cudaError_t launch(const __nv_bfloat16* k, const __nv_bfloat16* qt, float* out, int n, int s,
-                   bool mma, cudaStream_t stream) {
+                   cudaStream_t stream) {
   const dim3 grid(s / kQBlock, n);
-  if (mma) {
-    qk_rowsum_mma_kernel<D><<<grid, kThreads, 0, stream>>>(k, qt, out, s);
-  } else {
-    qk_rowsum_fma_kernel<D><<<grid, kThreads, 0, stream>>>(k, qt, out, s);
-  }
+  qk_rowsum_mma_kernel<D><<<grid, kThreads, 0, stream>>>(k, qt, out, s);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // k: (n, s, d) bf16, qt: (n, d, s) bf16, out: (n, 1, s) f32, all contiguous on the current
-// device. variant: 0 = fma (CUDA cores), 1 = mma (tensor cores). Returns a cudaError_t.
+// device. Returns a cudaError_t.
 extern "C" int afdm_qk_rowsum(const void* k, const void* qt, void* out, int n, int s, int d,
-                              int variant, void* stream) {
-  if (n < 1 || n > 65535 || s < kQBlock || s % kQBlock != 0 || variant < 0 || variant > 1) {
-    return cudaErrorInvalidValue;
-  }
+                              void* stream) {
+  if (n < 1 || n > 65535 || s < kQBlock || s % kQBlock != 0) return cudaErrorInvalidValue;
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k);
   const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(qt);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool mma = variant == 1;
   switch (d) {
-    case 8: return launch<8>(kp, qp, o, n, s, mma, st);
-    case 16: return launch<16>(kp, qp, o, n, s, mma, st);
-    case 32: return launch<32>(kp, qp, o, n, s, mma, st);
-    case 64: return launch<64>(kp, qp, o, n, s, mma, st);
-    case 128: return launch<128>(kp, qp, o, n, s, mma, st);
+    case 8: return launch<8>(kp, qp, o, n, s, st);
+    case 16: return launch<16>(kp, qp, o, n, s, st);
+    case 32: return launch<32>(kp, qp, o, n, s, st);
+    case 64: return launch<64>(kp, qp, o, n, s, st);
+    case 128: return launch<128>(kp, qp, o, n, s, st);
     default: return cudaErrorInvalidValue;
   }
 }

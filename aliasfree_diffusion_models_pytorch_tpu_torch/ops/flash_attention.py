@@ -23,8 +23,13 @@ device memory:
   they are only the yardsticks the kernels are checked against.
 * :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the
   wrappers: a CPU tensor takes the plain version, a CUDA tensor launches
-  ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu`` or raises. Each wrapper's
-  ``launches`` attribute counts its kernel launches.
+  ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu`` or raises. bf16 runs the
+  tensor-core kernels (``mma.sync``), f32 the CUDA-core kernels of the first
+  port. Each wrapper's ``launches`` attribute counts its calls that reached
+  the card.
+* :func:`fwd_plan` and :func:`bwd_scratch_shapes` are the launch plan the
+  bf16 kernels are given: heads per block of the forward and the backward's
+  scratch arrays, computed here so that the CPU tests reach them.
 * :func:`flash_mha` ties them into a ``torch.autograd.Function``: stats-mode
   forward when a gradient is needed, fold-mode forward otherwise.
 """
@@ -32,6 +37,7 @@ device memory:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -40,10 +46,15 @@ import torch
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
 
 __all__ = ["attention_reference", "attention_backward_reference", "flash_attention_fwd",
-           "flash_attention_bwd", "flash_mha", "HEAD_DIMS"]
+           "flash_attention_bwd", "flash_mha", "fwd_plan", "bwd_scratch_shapes", "HEAD_DIMS"]
 
 HEAD_DIMS = (8, 16, 32, 64)  # the kernel's template instantiations
 _DTYPES = (torch.float32, torch.bfloat16)
+# bf16 kernels: four warps a block, 16 rows a warp (csrc/flash_fwd.cu, csrc/flash_bwd.cu).
+WARPS = 4
+ROWS_PER_WARP = 16
+BWD_KEY_BLOCK = WARPS * ROWS_PER_WARP  # keys per block of the backward
+ALIGN = 16  # bytes: cp.async copies 16-byte rows
 
 
 def _default_scale(q: torch.Tensor, scale) -> float:
@@ -99,16 +110,72 @@ def attention_backward_reference(q, k, v, out, m, ssum, g, scale=None):
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """Launch plan of the bf16 forward kernel (``csrc/flash_fwd.cu``)."""
+
+    heads_per_block: int  # (b, h) pairs one block takes
+    warps_per_head: int   # warps of 16 query rows on each head
+    keys_per_tile: int    # keys of each head per shared-memory tile of 64 rows
+    q_tiles: int          # blocks along the queries of one group of heads
+    blocks: int
+
+
+def fwd_plan(bh: int, s: int) -> FwdPlan:
+    """Launch plan of the bf16 forward for ``bh`` heads of ``s`` queries.
+
+    A block has four warps of 16 query rows. At S <= 16 one warp covers a
+    head, so a block takes four heads; at S <= 32 two warps a head and two
+    heads; beyond, one head and 64 query rows a block. The 64 rows of a K/V
+    tile are shared out among the block's heads, so no warp idles on rows
+    past S where S is small.
+    """
+    if bh < 1 or s < 1:
+        raise ValueError(f"empty attention input: bh={bh}, s={s}")
+    heads = 4 if s <= ROWS_PER_WARP else 2 if s <= 2 * ROWS_PER_WARP else 1
+    rows = WARPS * ROWS_PER_WARP
+    q_tiles = 1 if heads > 1 else -(-s // rows)
+    return FwdPlan(heads_per_block=heads, warps_per_head=WARPS // heads,
+                   keys_per_tile=rows // heads, q_tiles=q_tiles,
+                   blocks=-(-bh // heads) * q_tiles)
+
+
+def bwd_scratch_shapes(bh: int, s: int, d: int, dtype: torch.dtype) -> dict:
+    """Scratch arrays of one backward launch, name -> (shape, dtype), in the
+    order ``afdm_flash_bwd`` takes them. The wrapper allocates them; the
+    kernels allocate nothing.
+
+    f32: δ per query. bf16: per query the float4 (−m·log2e, 1/Σ, −δ/Σ, 0),
+    the f32 dQ accumulator that the main kernel adds into with atomics
+    (zeroed by the pre-pass), and g/Σ rounded to bf16 (dV's operand).
+    """
+    if dtype == torch.bfloat16:
+        return {"consts": ((bh, s, 4), torch.float32), "dq_acc": ((bh, s, d), torch.float32),
+                "g_scaled": ((bh, s, d), torch.bfloat16)}
+    return {"consts": ((bh, s), torch.float32)}
+
+
+def _check_bf16_launch(scale: float, **tensors) -> None:
+    """What the bf16 kernels need beyond shapes: 16-byte-aligned rows for
+    cp.async and a positive scale (the row max is taken before scaling)."""
+    if not scale > 0:
+        raise ValueError(f"the bf16 kernels take a positive scale, got {scale}")
+    for name, t in tensors.items():
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name} must be {ALIGN}-byte aligned for the bf16 kernels "
+                             "(a view into the middle of a tensor may not be)")
+
+
 @functools.cache
 def _lib(name: str) -> ctypes.CDLL:
     """The kernel's library with its C signatures declared."""
     lib = kernels.load(name)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "flash_fwd":
-        lib.afdm_flash_fwd.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_float, ci, vp]
+        lib.afdm_flash_fwd.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_float, ci, ci, vp]
         lib.afdm_flash_fwd.restype = ci
     else:
-        lib.afdm_flash_bwd.argtypes = [vp] * 11 + [ci, ci, ci, ctypes.c_float, ci, vp]
+        lib.afdm_flash_bwd.argtypes = [vp] * 13 + [ci, ci, ci, ctypes.c_float, ci, vp]
         lib.afdm_flash_bwd.restype = ci
     lib.afdm_cuda_error_string.argtypes = [ci]
     lib.afdm_cuda_error_string.restype = ctypes.c_char_p
@@ -139,8 +206,10 @@ def flash_attention_fwd(q, k, v, scale=None, with_stats=False):
     """Attention forward on (B, H, S, D) q, k, v (f32 or bf16).
 
     CPU tensors take :func:`attention_reference`. CUDA tensors launch the
-    hand-written kernel on the current stream; anything it cannot take
-    raises. Returns ``out``, or ``(out, m, Σ)`` with ``with_stats``.
+    hand-written kernel on the current stream (bf16: the tensor-core kernel
+    with the launch plan of :func:`fwd_plan`; f32: the CUDA-core kernel);
+    anything it cannot take raises. Returns ``out``, or ``(out, m, Σ)`` with
+    ``with_stats``.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale, with_stats)
@@ -149,6 +218,9 @@ def flash_attention_fwd(q, k, v, scale=None, with_stats=False):
     _check(q, k, v)
     b, h, s, d = q.shape
     scale = _default_scale(q, scale)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_bf16_launch(scale, q=q, k=k, v=v)
     out = torch.empty_like(q)
     m = ssum = None
     if with_stats:
@@ -160,7 +232,7 @@ def flash_attention_fwd(q, k, v, scale=None, with_stats=False):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             m.data_ptr() if with_stats else None,
             ssum.data_ptr() if with_stats else None,
-            b * h, s, d, scale, int(q.dtype == torch.bfloat16),
+            b * h, s, d, scale, int(bf16), fwd_plan(b * h, s).heads_per_block if bf16 else 1,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -209,9 +281,16 @@ def flash_attention_bwd(q, k, v, out, m, ssum, g, scale=None):
     ulp apart, so the gradients agree to a few ulps of their largest entry
     (``tests/test_torch_flash_backward.py`` holds them to that).
 
-    ``launches`` counts calls that reached the card. Each runs two kernels
-    (dQ with δ, then dK/dV), and a call without stats also counts once in
+    ``launches`` counts calls that reached the card. A bf16 call runs three
+    kernels on the tensor cores (a pre-pass for δ, g/Σ and the zeroed dQ
+    scratch; one pass over all (query, key) pairs with one exp each; dQ's
+    cast), an f32 call the two CUDA-core kernels of the first port (dQ with
+    δ, then dK/dV). A call without stats also counts once in
     ``flash_attention_fwd.launches``.
+
+    bf16 dQ is summed with atomics in an order that changes from run to run,
+    so it varies in its last bits between runs; bf16 dK, dV and every f32
+    gradient are deterministic.
     """
     if (m is None) != (ssum is None):
         raise ValueError("m and ssum come together: pass both or neither")
@@ -225,14 +304,19 @@ def flash_attention_bwd(q, k, v, out, m, ssum, g, scale=None):
         _, m, ssum = flash_attention_fwd(q, k, v, scale, with_stats=True)
     _check_bwd(q, k, v, out, m, ssum, g)
     b, h, s, d = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_bf16_launch(scale, q=q, k=k, v=v, out=out, g=g)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    delta = torch.empty_like(m)  # scratch: rowsum(g ⊙ out), written by the dQ kernel
+    scratch = [torch.empty(shape, dtype=dt, device=q.device)
+               for shape, dt in bwd_scratch_shapes(b * h, s, d, q.dtype).values()]
+    ptrs = [t.data_ptr() for t in scratch] + [None] * (3 - len(scratch))
     lib = _lib("flash_bwd")
     with torch.cuda.device(q.device):
         err = lib.afdm_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
             m.data_ptr(), ssum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), b * h, s, d, scale, int(q.dtype == torch.bfloat16),
+            *ptrs, b * h, s, d, scale, int(bf16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:

@@ -4,9 +4,9 @@ Counterparts of the Pallas kernels of the JAX package's two micro-probes:
 
 * :func:`exp_chain` is ``benchmarks/exp_micro.py``'s ``kern`` (:96-100): per
   element, ``chain`` times, ``acc = op(acc) − 1`` for one of the probe's ten
-  ops (:57-89, :125-136), plus ``exp_fast`` (``__expf``, the exponential the
-  port's attention kernels use). It answers what an exponential costs on the
-  card beside a polynomial on the FMA units.
+  ops (:57-89, :125-136), plus ``exp_fast`` (``__expf``, the exponential of
+  the port's f32 attention kernels; the bf16 ones take ``exp2``). It answers
+  what an exponential costs on the card beside a polynomial on the FMA units.
 * :func:`qk_rowsum` is ``benchmarks/attn_headpack.py``'s ``qk_rowsum_kernel``
   (:84-92): ``out[n, 0, q] = Σ_k Σ_d K[n, k, d]·Qᵀ[n, d, q]`` with the logits
   formed in registers and only their sums written. It answers what the
@@ -30,7 +30,7 @@ import torch
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
 
 __all__ = ["OPS", "exp_chain", "exp_chain_plain", "qk_rowsum", "qk_rowsum_plain",
-           "block_diagonal_pack", "QK_HEAD_DIMS", "QK_QUERY_BLOCK", "QK_VARIANTS"]
+           "block_diagonal_pack", "QK_HEAD_DIMS", "QK_QUERY_BLOCK"]
 
 # The op's index here is the kernel's `op` argument (csrc/exp_chain.cu: enum Op).
 OPS = ("copy", "mul2", "poly4", "exp", "exp2", "fastexp2", "tanh", "erf", "rsqrt1p",
@@ -103,7 +103,7 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.afdm_exp_chain.argtypes = [vp, vp, ctypes.c_longlong, ci, ci, ci, vp]
         lib.afdm_exp_chain.restype = ci
     else:
-        lib.afdm_qk_rowsum.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.afdm_qk_rowsum.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         lib.afdm_qk_rowsum.restype = ci
     lib.afdm_cuda_error_string.argtypes = [ci]
     lib.afdm_cuda_error_string.restype = ctypes.c_char_p
@@ -153,18 +153,17 @@ exp_chain.launches = 0
 
 QK_HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernel's template instantiations
 QK_QUERY_BLOCK = 128  # queries per block: s must be a multiple
-QK_VARIANTS = ("fma", "mma")
 # The plain version holds the (chunk, s, s) f32 logits in memory: it walks n in
 # chunks that keep them under this many bytes.
 PLAIN_LOGITS_BYTES = 2**30
 
 
-def qk_rowsum_plain(k: torch.Tensor, qt: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
+def qk_rowsum_plain(k: torch.Tensor, qt: torch.Tensor) -> torch.Tensor:
     """``out[n, 0, q] = Σ_k Σ_d k[n, k, d]·qt[n, d, q]`` in plain PyTorch: the
-    f32 logits of ``chunk`` groups at a time, summed over the keys."""
+    f32 logits of as many groups at a time as fit in ``PLAIN_LOGITS_BYTES``,
+    summed over the keys."""
     n, s, _ = k.shape
-    if chunk is None:
-        chunk = max(1, min(n, PLAIN_LOGITS_BYTES // (4 * s * s)))
+    chunk = max(1, min(n, PLAIN_LOGITS_BYTES // (4 * s * s)))
     out = torch.empty((n, 1, s), dtype=torch.float32, device=k.device)
     for i in range(0, n, chunk):
         logits = torch.bmm(k[i:i + chunk].float(), qt[i:i + chunk].float())
@@ -185,18 +184,15 @@ def _check_qk(k: torch.Tensor, qt: torch.Tensor) -> None:
         raise ValueError(f"empty input {tuple(k.shape)}")
 
 
-def qk_rowsum(k: torch.Tensor, qt: torch.Tensor, variant: str = "mma") -> torch.Tensor:
+def qk_rowsum(k: torch.Tensor, qt: torch.Tensor) -> torch.Tensor:
     """Row sums over the keys of the logits ``k·qt``: k (n, s, d) and qt
     (n, d, s) in bf16 → (n, 1, s) f32.
 
     CPU tensors take :func:`qk_rowsum_plain`. CUDA tensors launch the
     hand-written kernel on the current stream, which forms every logit in
-    registers and writes only the sums: ``variant="mma"`` on the tensor cores
-    (``mma.sync``), ``"fma"`` on the CUDA cores. Anything the kernel cannot
-    take raises.
+    registers on the tensor cores (``mma.sync``) and writes only the sums.
+    Anything the kernel cannot take raises.
     """
-    if variant not in QK_VARIANTS:
-        raise ValueError(f"variant must be one of {QK_VARIANTS}, got {variant!r}")
     _check_qk(k, qt)
     if k.device.type == "cpu":
         return qk_rowsum_plain(k, qt)
@@ -217,7 +213,7 @@ def qk_rowsum(k: torch.Tensor, qt: torch.Tensor, variant: str = "mma") -> torch.
     lib = _lib("qk_rowsum")
     with torch.cuda.device(k.device):
         err = lib.afdm_qk_rowsum(
-            k.data_ptr(), qt.data_ptr(), out.data_ptr(), n, s, d, QK_VARIANTS.index(variant),
+            k.data_ptr(), qt.data_ptr(), out.data_ptr(), n, s, d,
             torch.cuda.current_stream(k.device).cuda_stream)
     if err != 0:
         raise RuntimeError(

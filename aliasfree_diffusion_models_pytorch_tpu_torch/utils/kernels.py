@@ -3,8 +3,8 @@
 Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, loaded with ``ctypes``. Libraries
 go to ``build/torch_kernels/`` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged one
-is reused. Nothing is built at import: the first launch builds its kernel,
+the source, of every shared header in ``csrc/`` (``*.cuh``) and of the flags,
+so an edited source or header is rebuilt and an unchanged one is reused. Nothing is built at import: the first launch builds its kernel,
 and :func:`build` builds several at once (one ``nvcc`` process per source,
 all started together).
 """
@@ -54,9 +54,13 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the kernel's library goes: named by a hash of its source, the
+    headers of ``csrc`` (any of them may be included) and the flags."""
+    digest = hashlib.sha256((csrc / SOURCES[name]).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -6,11 +6,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. names the card (``nvidia-smi`` name and power limit, torch's device name);
 2. builds every hand-written kernel from ``csrc/`` with nvcc (sm_90a), all
    sources at once (``flash_fwd``, ``flash_bwd``, ``exp_chain``,
-   ``qk_rowsum``), and prints the build seconds and ptxas' register report;
+   ``qk_rowsum``), and prints the build seconds and each kernel's registers
+   and spill bytes from ptxas; the bf16 attention kernels must spill nothing;
 3. holds each kernel against its plain PyTorch version on the card, in bf16
-   and f32, with and without softmax stats, and times kernel, plain version
-   and the one-call PyTorch yardstick (``scaled_dot_product_attention`` and
-   its backward, never called by the port) beside the reckoned bound:
+   (the tensor-core kernels) and f32 (the CUDA-core kernels), with and
+   without softmax stats, and times kernel, plain version and the one-call
+   PyTorch yardstick (``scaled_dot_product_attention`` and its backward,
+   never called by the port) beside the reckoned bound; a timed kernel's
+   profile must hold every kernel of every call (three ``flash_bwd*`` kernels
+   a bf16 backward call, two an f32 one) or is taken again:
    the forward at every shape of the sampling path (Config D, image 32, base
    width 32: the six attention blocks at n=16 and at the CFG-doubled n=32);
    the backward at every shape of the training path (the same six blocks at
@@ -20,9 +24,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``exp_chain`` at the probe's full (64, 1024, 1024) array for every op
    (chain 16, and a single application), with each op's bound, its cost per
    application off the slope against ``copy`` and the ``fastexp2`` accuracy
-   line; ``qk_rowsum`` (tensor-core and CUDA-core variants) at the probe's
-   three shapes, with the ``bmm`` + ``sum`` yardstick, the two ratios and the
-   verdict;
+   line; ``qk_rowsum`` at the probe's three shapes, with the ``bmm`` + ``sum``
+   yardstick, the two ratios and the verdict;
 4. runs the full-width Config-D UNet forward (n=16) in f32 on the card
    against the same weights on the CPU (TF32 off), and in bf16, counting 6
    kernel launches per forward; DDIM-5 on the card against the CPU with the
@@ -104,6 +107,12 @@ REL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0**-6}
 M_ATOL = 1e-5   # row max of identical f32 logits, summation order only
 SUM_RTOL = 1e-4  # Σ rescaled once per 32-key tile: a few f32 roundings per tile
 
+# Kernels one call of the backward wrapper runs, by input dtype
+# (csrc/flash_bwd.cu): bf16 a pre-pass, the tensor-core pass over every
+# (query, key) pair and dQ's cast; f32 the dQ and the dK/dV kernels of the
+# first port. torch.profiler must show all of them for every timed call.
+BWD_KERNELS = {torch.bfloat16: 3, torch.float32: 2}
+
 # The 64-px train step (image 64, base width 64, batch 32): (block, S, C).
 ATTN_SHAPES_64 = [("sa1", 1024, 128), ("sa2", 256, 256), ("sa3", 64, 256),
                   ("sa4", 256, 128), ("sa5", 1024, 64), ("sa6", 4096, 64)]
@@ -173,6 +182,44 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def kernel_label(mangled: str) -> str:
+    """``flash_bwd_mma_kernel<8>`` from the mangled name ptxas prints: the
+    length-prefixed identifier that ends in ``_kernel`` (the anonymous
+    namespace before it carries a hash with digits of its own), then its
+    integer, bool and float template arguments."""
+    import re
+
+    for m in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
+        digits = m.group()
+        for i in range(len(digits)):  # the length is some suffix of the digit run
+            n = int(digits[i:])
+            name = mangled[m.end():m.end() + n]
+            if len(name) == n and name.endswith("_kernel"):
+                t = re.match(r"I((?:L[a-z]\d+E|f)+)E", mangled[m.end() + n:])
+                if t is None:
+                    return name
+                args = ["float" if a == "" else a for a in re.findall(r"L[a-z](\d+)E|f", t.group(1))]
+                return f"{name}<{', '.join(args)}>"
+    return mangled[:60]
+
+
+def ptxas_report(log_text: str) -> list[dict]:
+    """Registers and spill bytes of every kernel in an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    entries, current = {}, None
+    for line in log_text.splitlines():
+        if m := re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line):
+            current = m.group(1)
+        elif current and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            entries.setdefault(current, {})["spill"] = (int(m.group(1)), int(m.group(2)))
+        elif current and (m := re.search(r"Used (\d+) registers", line)):
+            entries.setdefault(current, {})["registers"] = int(m.group(1))
+    return [dict(kernel=kernel_label(name), registers=e.get("registers", -1),
+                 spill_stores=e.get("spill", (0, 0))[0], spill_loads=e.get("spill", (0, 0))[1])
+            for name, e in entries.items() if "registers" in e]
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -195,11 +242,19 @@ def call_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(run) -> tuple[list[tuple[str, float]], float]:
+# Every trace that came back without the kernels it had to hold: what was
+# expected and what the trace held (printed in the kernel line).
+PROFILER_SHORTFALLS: list[dict] = []
+
+
+def device_events(run, expect: dict | None = None) -> tuple[list[tuple[str, float]], float]:
     """Runs ``run()`` under torch.profiler: the (name, µs) of every kernel and
-    copy on the card, and the host's seconds around the run. A trace now and
-    then comes back with no device events at all; then the run is profiled
-    again, and a third empty trace fails."""
+    copy on the card, and the host's seconds around the run. With ``expect``
+    ({substring of a kernel name: events}) the trace must hold exactly that
+    many events whose name contains each key. A trace now and then comes back
+    with no device events at all, or (the question of PERF.md §7) perhaps
+    short of some kernels; either is recorded and the run profiled again, and
+    a third such trace fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -209,19 +264,29 @@ def device_events(run) -> tuple[list[tuple[str, float]], float]:
             run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        # Device events without the spans of user annotations (the optimizer's
+        # ``Optimizer.step#AdamW.step`` shows on the device timeline too):
+        # those are ranges over kernels, not kernels.
         events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        counts = {key: sum(key in name for name, _ in events) for key in (expect or {})}
+        if events and counts == (expect or {}):
             return events, wall
-        log("  (torch.profiler recorded no device events; profiling again)")
-    raise AssertionError("torch.profiler recorded no device time in three traces")
+        PROFILER_SHORTFALLS.append(dict(expected=expect or "any", got=counts, events=len(events)))
+        log(f"  (torch.profiler trace held {len(events)} device events, {counts} against "
+            f"{expect or 'any'}; profiling again)")
+    raise AssertionError(f"torch.profiler: three traces without the expected kernels {expect}")
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, per_call: dict | None = None) -> float:
     """Device time per call: the summed durations of the kernels (and copies)
-    that ``iters`` calls ran, from torch.profiler's CUDA trace."""
+    that ``iters`` calls ran, from torch.profiler's CUDA trace. ``per_call``
+    ({substring of a kernel name: kernels per call}) makes the trace hold
+    each named kernel of every call (see :func:`device_events`)."""
     fn()
-    events, _ = device_events(lambda: [fn() for _ in range(iters)])
+    expect = {key: n * iters for key, n in per_call.items()} if per_call else None
+    events, _ = device_events(lambda: [fn() for _ in range(iters)], expect)
     return sum(us for _, us in events) / iters / 1e3
 
 
@@ -283,7 +348,8 @@ def phase_kernels(fa) -> dict:
                          "plain_": lambda: fa.attention_reference(q, k, v, scale),
                          "library_": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)}
                 for key, fn in calls.items():
-                    row[f"{key}ms"] = device_ms(fn)
+                    per_call = {"flash_fwd": 1} if key == "" else None
+                    row[f"{key}ms"] = device_ms(fn, per_call=per_call)
                     row[f"{key}call_ms"] = call_ms(fn)
                 row["bound_ms"], row["bound_by"] = bound([attention_times(n * HEADS, s, d, dtype)])
                 rows.append(row)
@@ -369,14 +435,16 @@ def phase_bwd_kernel(fa) -> dict:
                         sdpa_out, (qg, kg, vg), g, retain_graph=True),
                 }
                 for key, fn in calls.items():
-                    row[f"{key}ms"] = device_ms(fn, iters=5)
+                    per_call = {"flash_bwd": BWD_KERNELS[dtype]} if key == "" else None
+                    row[f"{key}ms"] = device_ms(fn, iters=5, per_call=per_call)
                     row[f"{key}call_ms"] = call_ms(fn, iters=10, warmup=1)
                 row["bound_ms"], row["bound_by"] = bound(
                     [attention_bwd_times(n * HEADS, s, d, dtype)])
                 rows.append(row)
                 log(f"  {tag:<34} err dq {errs[0]:.1e} dk {errs[1]:.1e} dv {errs[2]:.1e}"
                     f" (of max: {rels[0]:.1e} {rels[1]:.1e} {rels[2]:.1e}; fwd {fwd_rel:.1e})"
-                    f"  device us: kernel {row['ms'] * 1e3:8.1f}"
+                    f"  device us: kernel {row['ms'] * 1e3:8.1f} (per call, CUDA events:"
+                    f" {row['call_ms'] * 1e3:8.1f})"
                     f" plain(bh={row['plain_bh']}) {row['plain_ms'] * 1e3:8.1f}"
                     f" sdpa-bwd {row['library_ms'] * 1e3:8.1f}"
                     f" bound {row['bound_ms'] * 1e3:7.2f} ({row['bound_by']})")
@@ -474,7 +542,7 @@ def phase_exp_chain(kp, probes) -> dict:
 
 
 def phase_qk_rowsum(kp) -> dict:
-    """qk_rowsum (both variants) vs its plain version at the probe's three shapes."""
+    """qk_rowsum vs its plain version at the probe's three shapes."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     k8 = qt8 = None
@@ -493,16 +561,13 @@ def phase_qk_rowsum(kp) -> dict:
             # the diagonal blocks hold the heads' own logits: same sums as (a)
             per_head = kp.qk_rowsum_plain(k8, qt8).reshape(n, 1, s)
             check(errors(ref, per_head)[1] <= QK_REL_TOL, "packed operands against per-head sums")
-        for variant in kp.QK_VARIANTS:
-            got = kp.qk_rowsum(k, qt, variant)
-            torch.cuda.synchronize()
-            err, rel = errors(got, ref)
-            check(rel <= QK_REL_TOL, f"qk_rowsum {name} {variant}: err {err} is {rel} of "
-                  f"max |out| > {QK_REL_TOL}")
-            row[f"{variant}_max_abs_err"], row[f"{variant}_max_rel_err"] = err, rel
-            row[f"{variant}_ms"] = device_ms(lambda: kp.qk_rowsum(k, qt, variant),
-                                             iters=20 if variant == "mma" else 5)
-        del ref
+        got = kp.qk_rowsum(k, qt)
+        torch.cuda.synchronize()
+        row["max_abs_err"], row["max_rel_err"] = errors(got, ref)
+        check(row["max_rel_err"] <= QK_REL_TOL, f"qk_rowsum {name}: err {row['max_abs_err']} is "
+              f"{row['max_rel_err']} of max |out| > {QK_REL_TOL}")
+        row["ms"] = device_ms(lambda: kp.qk_rowsum(k, qt), iters=20)
+        del ref, got
         # The one-call yardstick writes the s x s logits to device memory, so it
         # walks n in chunks that keep them under 1 GiB in bf16 (as the plain
         # version does in f32): the time is the sum over the chunks.
@@ -512,7 +577,6 @@ def phase_qk_rowsum(kp) -> dict:
             return [torch.bmm(k[i:i + chunk], qt[i:i + chunk]).sum(1, dtype=torch.float32)
                     for i in range(0, n, chunk)]
 
-        row["ms"], row["max_abs_err"] = row["mma_ms"], row["mma_max_abs_err"]
         row["plain_ms"] = device_ms(lambda: kp.qk_rowsum_plain(k, qt), iters=2)
         row["library_ms"] = device_ms(library, iters=3)
         row["library_chunk"] = chunk
@@ -523,36 +587,19 @@ def phase_qk_rowsum(kp) -> dict:
         row["bound_ms"], row["bound_by"] = max(bytes_ms, ops_ms), (
             "bytes" if bytes_ms >= ops_ms else "operations")
         rows.append(row)
-        log(f"  {name:15s} (n={n}, s={s}, d={d}) err mma {row['mma_max_abs_err']:.1e} "
-            f"({row['mma_max_rel_err']:.1e} of max) fma {row['fma_max_abs_err']:.1e} "
-            f"({row['fma_max_rel_err']:.1e})  device ms: mma {row['mma_ms']:.4f} "
-            f"({row['flops'] / row['mma_ms'] / 1e9:.1f} TFLOP/s) fma {row['fma_ms']:.4f} "
+        log(f"  {name:15s} (n={n}, s={s}, d={d}) err {row['max_abs_err']:.1e} "
+            f"({row['max_rel_err']:.1e} of max)  device ms: kernel {row['ms']:.4f} "
+            f"({row['flops'] / row['ms'] / 1e9:.1f} TFLOP/s) "
             f"plain {row['plain_ms']:.3f} bmm+sum(chunks of {chunk}) {row['library_ms']:.3f} "
             f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
         del k, qt
         torch.cuda.empty_cache()
-    # Beyond the probe's three shapes: the per-head product at the depths between
-    # 8 and 128 (tensor-core variant), to read the cost of depth off a line.
-    n, s, _ = QK_SHAPES["perhead_d8"]
-    sweep = []
-    for d in (16, 32, 64):
-        k = torch.randn((n, s, d), generator=gen, device="cuda").to(torch.bfloat16)
-        qt = torch.randn((n, d, s), generator=gen, device="cuda").to(torch.bfloat16)
-        err, rel = errors(kp.qk_rowsum(k, qt), kp.qk_rowsum_plain(k, qt))
-        check(rel <= QK_REL_TOL, f"qk_rowsum depth {d}: err {err} is {rel} of max |out|")
-        sweep.append(dict(n=n, s=s, d=d, max_abs_err=err, max_rel_err=rel,
-                          ms=device_ms(lambda: kp.qk_rowsum(k, qt), iters=20)))
-    by_depth = ([(r["d"], r["mma_ms"]) for r in rows if r["shape"] != "blockdiag_hd32"]
-                + [(r["d"], r["ms"]) for r in sweep])
-    log("  per-head (n=1024, s=1024) by depth, mma ms: "
-        + ", ".join(f"d={d}: {t:.4f}" for d, t in sorted(by_depth)))
-    ms = {r["shape"]: r["mma_ms"] for r in rows}
+    ms = {r["shape"]: r["ms"] for r in rows}
     ratio = ms["blockdiag_hd32"] / ms["perhead_d8"]
     depth = ms["perhead_d128"] / ms["perhead_d8"]
     verdict = "REJECT head-packing" if ratio > 1.1 else "ACCEPT head-packing"
     log(f"  packed_over_perhead {ratio:.2f}, d128_over_d8 {depth:.2f}: {verdict}")
-    return dict(rows=rows, depth_sweep=sweep, packed_over_perhead=ratio, d128_over_d8=depth,
-                verdict=verdict)
+    return dict(rows=rows, packed_over_perhead=ratio, d128_over_d8=depth, verdict=verdict)
 
 
 def phase_unet(fa, weights, unet_mod, config) -> None:
@@ -648,7 +695,7 @@ def phase_train_step_vs_cpu(fa, weights, config) -> None:
 def profile_forward(model, x, t) -> dict:
     """Device time by kernel family for one forward (torch.profiler)."""
     model(x, t)
-    events, wall = device_events(lambda: model(x, t))
+    events, wall = device_events(lambda: model(x, t), {"flash_fwd": 6})
     total = sum(us for _, us in events)
     attn = sum(us for name, us in events if "flash_fwd" in name)
     return {"wall_ms": round(wall * 1e3, 3), "device_busy_ms": round(total / 1e3, 3),
@@ -942,7 +989,8 @@ def phase_study(fa, kp, cli) -> dict:
 
 def profile_step(step, state, batch) -> dict:
     """Device time and kernel count of one train step (torch.profiler)."""
-    events, wall = device_events(lambda: step(state, batch)[1].item())
+    events, wall = device_events(lambda: step(state, batch)[1].item(),
+                                 {"flash_fwd": 6, "flash_bwd": 6 * BWD_KERNELS[torch.bfloat16]})
     busy = {"total": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0}
     by_name: dict[str, list] = {}  # kernel name -> [device us, launches]
     for name, us in events:
@@ -1036,11 +1084,19 @@ def main() -> int:
         stale = kernels.library_path(name)
         if stale.exists():
             stale.unlink()  # prove the build from this checkout's sources
+    ptxas = []
     for r in kernels.build():
         log(f"  {r.name}: {r.seconds:.1f} s -> {r.path}")
-        for line in r.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {line.strip()}")
+        for entry in ptxas_report(r.log):
+            ptxas.append(dict(library=r.name, **entry))
+            log(f"    {entry['kernel']:<36} {entry['registers']:3d} registers, spill stores "
+                f"{entry['spill_stores']} B, loads {entry['spill_loads']} B")
+    # The bf16 attention kernels (everything of flash_fwd / flash_bwd but the
+    # f32 CUDA-core kernels of the first port, `<float, D>`) keep every value
+    # in registers.
+    spilled = [e["kernel"] for e in ptxas if e["library"].startswith("flash_")
+               and "float" not in e["kernel"] and e["spill_stores"] + e["spill_loads"]]
+    check(not spilled, f"bf16 attention kernels spill: {spilled}")
 
     log(f"  [build: {time.perf_counter() - t_build:.1f} s]")
     t_phase = time.perf_counter()
@@ -1112,6 +1168,7 @@ def main() -> int:
         "max_rel_err_by_dtype": {str(k)[6:]: v for k, v in kres["max_rel"].items()},
         "rel_tol_by_dtype": {str(k)[6:]: v for k, v in REL_TOL.items()},
         "kernels_per_launch": 1,
+        "ptxas": [e for e in ptxas if e["library"] == "flash_fwd"],
         "shapes": kres["rows"],
         "main_path_runs": runs,
         "train_path_launches": train_runs[0]["fwd_launches"],
@@ -1133,11 +1190,13 @@ def main() -> int:
         "max_abs_err_by_dtype": {str(k)[6:]: v for k, v in bres["max_err"].items()},
         "max_rel_err_by_dtype": {str(k)[6:]: v for k, v in bres["max_rel"].items()},
         "rel_tol_by_dtype": {str(k)[6:]: v for k, v in REL_TOL.items()},
-        # "launches" counts calls of the wrapper: each runs two __global__
-        # kernels (dQ with δ, then dK/dV), so a profiler shows twice as many
-        # flash_bwd events. A call without stats also adds 1 to flash_fwd's
+        # "launches" counts calls of the wrapper: a bf16 call runs three
+        # __global__ kernels (pre-pass, tensor-core pass, dQ cast), an f32 call
+        # two (dQ with δ, then dK/dV), and a profiler shows that many flash_bwd
+        # events per call. A call without stats also adds 1 to flash_fwd's
         # count (the stats-mode forward that recomputes m and Σ).
-        "kernels_per_launch": 2,
+        "kernels_per_launch": {str(k)[6:]: v for k, v in BWD_KERNELS.items()},
+        "ptxas": [e for e in ptxas if e["library"] == "flash_bwd"],
         "shapes": bres["rows"],
         "main_path_runs": train_runs,
         "train_step": step_rows,
@@ -1172,10 +1231,9 @@ def main() -> int:
         "source": "aliasfree_diffusion_models_pytorch_tpu_torch/csrc/qk_rowsum.cu",
         "replaces": "benchmarks/attn_headpack.py:84",
         "launches": study["probe_headpack"]["launches"][3],
-        "max_abs_err": max(max(r["mma_max_abs_err"], r["fma_max_abs_err"])
-                           for r in qres["rows"]),
-        # times: the default (tensor-core) variant at the probe's three shapes,
-        # summed; the yardstick is bmm + sum per chunk of n (see the rows)
+        "max_abs_err": max(r["max_abs_err"] for r in qres["rows"]),
+        # times: the probe's three shapes, summed; the yardstick is bmm + sum
+        # per chunk of n (see the rows)
         "ms": sum(r["ms"] for r in qres["rows"]),
         "plain_ms": sum(r["plain_ms"] for r in qres["rows"]),
         "bound_ms": sum(r["bound_ms"] for r in qres["rows"]),
@@ -1183,18 +1241,17 @@ def main() -> int:
                                         for r in qres["rows"])
                     > sum(1e3 * r["bytes"] / HBM_BYTES_PER_S for r in qres["rows"]) else "bytes",
         "library_ms": sum(r["library_ms"] for r in qres["rows"]),
-        "max_rel_err": max(max(r["mma_max_rel_err"], r["fma_max_rel_err"])
-                           for r in qres["rows"]),
+        "max_rel_err": max(r["max_rel_err"] for r in qres["rows"]),
         "rel_tol": QK_REL_TOL,
         "kernels_per_launch": 1,
         "shapes": qres["rows"],
-        "depth_sweep": qres["depth_sweep"],
         "packed_over_perhead": qres["packed_over_perhead"],
         "d128_over_d8": qres["d128_over_d8"],
         "verdict": qres["verdict"],
         "main_path_runs": {"probe_headpack": study["probe_headpack"],
                            "result": study["probe_headpack_result"]},
-    }], "study_path": {k: v for k, v in study.items() if not k.startswith("probe_")}}
+    }], "study_path": {k: v for k, v in study.items() if not k.startswith("probe_")},
+        "profiler_shortfalls": PROFILER_SHORTFALLS}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)  # the nvidia-smi line as it printed it
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

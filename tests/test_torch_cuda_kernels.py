@@ -7,12 +7,16 @@ a machine that has only PyTorch, run it with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-Tolerances (f32 inputs of order 1): the kernels sum the same f32 products in
-another order and use ``__expf`` where the plain versions use ``torch.exp``:
-atol 1e-5 for the forward, 2e-5 for the gradients. In bf16 kernel and plain
-version round p, dS and the result to bf16 from f32 values that differ in the
-last bits, so entries land one bf16 ulp apart (at most 2^-7 of the entry):
-each tensor within 2^-6 of its largest entry, two ulps there, at every S.
+Tolerances (f32 inputs of order 1): the f32 kernels sum the same f32
+products in another order and use ``__expf`` where the plain versions use
+``torch.exp``: atol 1e-5 for the forward, 2e-5 for the gradients. In bf16 the
+tensor-core kernels and the plain versions round p, dS and the result to
+bf16 from f32 values that differ in the last bits (exp2 against exp, the
+tensor cores' adder, dQ summed by atomics), and the backward also rounds g/Σ,
+its dV operand, so entries land one bf16 ulp apart (at most 2^-7 of the
+entry): each tensor within 2^-6 of its largest entry, two ulps there, at
+every S. The bf16 stats are held to the f32 limits of m (1e-5) and Σ (1e-4
+relative).
 
 The probe kernels: ``exp_chain`` within 2e-5 of its plain version's largest
 |entry|. Every op(acc) is of order 1 before the chain subtracts 1, so each
@@ -97,6 +101,41 @@ def test_bf16_kernels_match_plain_versions(card, s, d, stats):
         _assert_within_bf16_ulps(a, r, name)
 
 
+@pytest.mark.parametrize("b,h,s,d", [
+    (16, 4, 16, 32),    # S=16, B·H=64: four heads a forward block
+    (8, 4, 32, 32),     # S=32: two heads a block
+    (1, 3, 200, 8),     # ragged against 64-row tiles
+    (1, 5, 300, 64),    # ragged, D=64
+    (2, 4, 256, 64),    # D=64
+    (256, 4, 1024, 8),  # B·H=1024 at S=1024: sa6 of the 32-px train step
+], ids=["s16_bh64", "s32", "s200", "s300_d64", "s256_d64", "s1024_bh1024"])
+def test_bf16_tensor_core_kernels_at_main_path_shapes(card, b, h, s, d):
+    q, k, v, g = _tensors(card, b, h, s, d, 4, seed=s + d, dtype=torch.bfloat16)
+    out, m, ssum = fa.flash_attention_fwd(q, k, v, with_stats=True)
+    ref_out, ref_m, ref_s = fa.attention_reference(q, k, v, with_stats=True)
+    _assert_within_bf16_ulps(out, ref_out, "out")
+    torch.testing.assert_close(m, ref_m, rtol=0, atol=1e-5)
+    torch.testing.assert_close(ssum, ref_s, rtol=1e-4, atol=0)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, m, ssum, g)
+    assert fa.flash_attention_bwd.launches == before + 1
+    ref = fa.attention_backward_reference(q, k, v, out, m, ssum, g)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert bool(torch.isfinite(a).all()), name
+        _assert_within_bf16_ulps(a, r, name)
+
+
+def test_bf16_kernels_refuse_misaligned_rows(card):
+    flat = torch.zeros(2 * 4 * 64 * 8 + 8, device=card, dtype=torch.bfloat16)
+    z = flat[:-8].view(2, 4, 64, 8)
+    off = flat[1:-7].view(2, 4, 64, 8)  # contiguous, 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fwd(off, z, z)
+    out, m, ssum = fa.flash_attention_fwd(z, z, z, with_stats=True)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_bwd(z, z, z, out, m, ssum, off)
+
+
 def test_flash_mha_autograd_on_the_card_matches_the_cpu(card):
     cpu = _tensors(torch.device("cpu"), 2, 4, 256, 16, 4, seed=7)
     grads = {}
@@ -159,15 +198,14 @@ def test_exp_chain_kernel_matches_plain_version(card, op, chain):
         assert _chain_error(single, kp.exp_chain_plain(x, op, 1, subtract=False)) <= limit
 
 
-@pytest.mark.parametrize("variant", kp.QK_VARIANTS)
 @pytest.mark.parametrize("n,s,d", [(4, 128, 8), (3, 256, 16), (2, 512, 32), (2, 128, 64),
                                    (4, 128, 128)])
-def test_qk_rowsum_kernel_matches_plain_version(card, n, s, d, variant):
+def test_qk_rowsum_kernel_matches_plain_version(card, n, s, d):
     rng = np.random.default_rng(s + d)
     k = torch.from_numpy(rng.standard_normal((n, s, d)).astype(np.float32)).to(card).bfloat16()
     qt = torch.from_numpy(rng.standard_normal((n, d, s)).astype(np.float32)).to(card).bfloat16()
     before = kp.qk_rowsum.launches
-    got = kp.qk_rowsum(k, qt, variant)
+    got = kp.qk_rowsum(k, qt)
     assert kp.qk_rowsum.launches == before + 1
     ref = kp.qk_rowsum_plain(k, qt)
     assert got.shape == (n, 1, s) and got.dtype == torch.float32

@@ -119,6 +119,59 @@ def test_bf16_grads_match_pallas_backward(monkeypatch, stats, rel):
         np.testing.assert_allclose(a, r, atol=rel * np.abs(r).max(), err_msg=f"d{name}")
 
 
+def _emulate_bf16_kernels(q, k, v, out, m, ssum, g, scale=None):
+    """The bf16 tensor-core backward (``csrc/flash_bwd.cu``) in plain torch,
+    rounding where it rounds: P = 2^(logits·scale·log2e − m·log2e) rounded to
+    bf16; dV's operand g/Σ rounded to bf16 (the tensor cores take bf16 where
+    the plain version multiplies by an f32 g/Σ); dS = P·(dP·(1/Σ) − δ/Σ)
+    rounded to bf16; dQ summed in f32 one 64-key block at a time, as the
+    kernel's blocks add their parts into the f32 scratch; dQ, dK, dV rounded
+    once at the end. Products of bf16 values accumulate in f32."""
+    b, h, s, _ = q.shape
+    scale = fa._default_scale(q, scale)
+    log2e = np.float32(np.log2(np.e))
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    m, inv = m.reshape(b, h, s, 1), 1.0 / ssum.reshape(b, h, s, 1)
+    logits = torch.matmul(qf, kf.transpose(-1, -2))
+    p = torch.exp2(logits * float(np.float32(scale) * log2e) - m * float(log2e))
+    p = p.to(torch.bfloat16).float()
+    dv = torch.matmul(p.transpose(-1, -2), (gf * inv).to(torch.bfloat16).float())
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    delta = (gf * out.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (dp * inv - delta * inv)).to(torch.bfloat16).float()
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, s, fa.BWD_KEY_BLOCK):
+        keys = slice(k0, k0 + fa.BWD_KEY_BLOCK)
+        dq += torch.matmul(ds[..., keys], kf[..., keys, :])
+    return (dq * scale).to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+@pytest.mark.parametrize("b,h,s,d", [(1, 2, 1024, 8), (2, 2, 256, 16)])
+def test_tensor_core_rounding_points_fit_the_bf16_share(monkeypatch, b, h, s, d):
+    """Before any card: the bf16 kernel's rounding points (its one extra
+    rounding, of g/Σ, included) against the plain version and against the
+    Pallas backward in interpret mode, bf16 on every side, within the share
+    the card checks hold the kernel to: 2^-6 of each gradient's largest
+    entry, two bf16 ulps there."""
+    monkeypatch.setenv("AFDM_FLASH_STATS", "1")
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(b, h, s, d, seed=s, n=4))
+    out, m, ssum = fa.attention_reference(q, k, v, with_stats=True)
+    got = _emulate_bf16_kernels(q, k, v, out, m, ssum, g)
+    plain = fa.attention_backward_reference(q, k, v, out, m, ssum, g)
+    _, vjp = jax.vjp(lambda q, k, v: j_flash_mha(q, k, v, None, True),
+                     *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)))
+    pallas = vjp(jnp.asarray(g.float().numpy(), jnp.bfloat16))
+    for name, a, p, r in zip("qkv", got, plain, pallas):
+        assert a.dtype == torch.bfloat16 and r.dtype == jnp.bfloat16
+        a, p, r = a.float().numpy(), p.float().numpy(), np.asarray(r.astype(jnp.float32))
+        np.testing.assert_allclose(a, p, rtol=0, atol=2.0**-6 * np.abs(p).max(),
+                                   err_msg=f"d{name} vs the plain version")
+        np.testing.assert_allclose(a, r, rtol=0, atol=2.0**-6 * np.abs(r).max(),
+                                   err_msg=f"d{name} vs the Pallas backward")
+    assert np.abs(got[2].float().numpy() - plain[2].float().numpy()).max() > 0  # dV rounds apart
+
+
 def test_flash_mha_without_grad_is_the_fold_forward():
     q, k, v = map(torch.from_numpy, _qkv(1, 2, 64, 8, seed=3))
     expect = fa.attention_reference(q, k, v)
