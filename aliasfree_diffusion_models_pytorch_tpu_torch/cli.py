@@ -12,6 +12,7 @@
     python -m aliasfree_diffusion_models_pytorch_tpu_torch info
     python -m aliasfree_diffusion_models_pytorch_tpu_torch probe exp
     python -m aliasfree_diffusion_models_pytorch_tpu_torch probe headpack --out headpack.json
+    python -m aliasfree_diffusion_models_pytorch_tpu_torch reproduce-grid --configs A,D-2N
 
 The flags are the JAX CLI's (``cli.py:_add_common``); the model defaults are
 Config D (variant 3) at 32 px, three channels, bf16. ``train`` writes the
@@ -23,7 +24,9 @@ trains on the synthetic dataset. ``run`` is the whole experiment pipeline
 read the run's checkpoint (or one written by the JAX package); ``sample
 --random-weights`` draws a seeded torch-default initialisation instead.
 ``eval`` computes IS/FID/KID between two folders of PNGs. ``probe`` runs one
-of the two kernel micro-probes (``probes.py``). ``--device`` picks the card
+of the two kernel micro-probes (``probes.py``). ``reproduce-grid`` trains,
+samples and scores the published quality grid (``reproduce.py``), printing
+its markdown table and writing its JSON artifact. ``--device`` picks the card
 (default ``cuda``) or ``cpu``.
 """
 
@@ -65,12 +68,17 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 def _add_train(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dataset-path", default=None,
-                   help="MNIST CSV file; absent -> the synthetic dataset")
+                   help="MNIST CSV file, or an image tree with one directory per class "
+                        "for other datasets; absent -> the synthetic dataset")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--resume", action="store_true",
                    help="resume from the run checkpoint if present")
+    p.add_argument("--checkpoint-opt-state", action="store_true",
+                   help="checkpoint the optimizer state too (exact resume)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of train steps 10-19 here")
     p.add_argument("--image-gen-per-epoch", type=int, default=4)
     p.add_argument("--gen-per-batch", type=int, default=200)
     p.add_argument("--gen-total", type=int, default=2000)
@@ -97,6 +105,7 @@ _TRAIN_FIELDS = {
     "gen_total": "gen_total", "label_dropout": "label_dropout",
     "lr_schedule": "lr_schedule", "warmup_steps": "warmup_steps",
     "lr_min_ratio": "lr_min_ratio", "grad_accum": "grad_accum", "grad_clip": "grad_clip",
+    "checkpoint_opt_state": "checkpoint_opt_state",
 }
 
 
@@ -145,6 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
     summary = sub.add_parser("summary", help="model inspection: param count + per-layer shapes")
     sweep = sub.add_parser("sweep", help="run the full pipeline for several variants")
     probe = sub.add_parser("probe", help="kernel micro-probes: exp cost, QK^T head packing")
+    grid = sub.add_parser("reproduce-grid",
+                          help="train + eval the published quality grid (reference README)")
     for p in (run, train, sample, rotate, shift, summary, sweep):
         _add_common(p)
     for p in (run, train, sweep):
@@ -168,7 +179,35 @@ def build_parser() -> argparse.ArgumentParser:
     probe.add_argument("--out", default=None, help="write the result dict as JSON here")
     probe.add_argument("--small", action="store_true",
                        help="a size the CPU runs through the plain versions in seconds")
-    for p in (evaluate, probe):
+    grid.add_argument("--dataset", default="MNIST", help="MNIST | CIFAR10 | MNISTM")
+    grid.add_argument("--dataset-path", default=None,
+                      help="real training data (CSV for MNIST, image tree otherwise); "
+                           "absent -> synthetic fallback, clearly labeled")
+    grid.add_argument("--inception-weights", default=None,
+                      help="local pt_inception/.npz weights; absent -> RandomFeatures "
+                           "(NOT comparable to published numbers)")
+    grid.add_argument("--configs", default=None,
+                      help="comma-separated subset (default: all 13, e.g. A,D-1N,D-2N)")
+    grid.add_argument("--epochs", type=int, default=100)
+    grid.add_argument("--batch-size", type=int, default=16)
+    grid.add_argument("--seed", type=int, default=42)
+    grid.add_argument("--gen-total", type=int, default=2000)
+    grid.add_argument("--gen-per-batch", type=int, default=200)
+    grid.add_argument("--image-size", type=int, default=32)
+    grid.add_argument("--image-channels", type=int, default=None)
+    grid.add_argument("--noise-steps", type=int, default=1000)
+    grid.add_argument("--root", default=".")
+    grid.add_argument("--out", default="sample_results/reproduced_grid.json")
+    grid.add_argument("--resume", action="store_true",
+                      help="reload finished rows from --out and skip those configs "
+                           "(recipe must match the prior artifact)")
+    grid.add_argument("--reuse-checkpoints", action="store_true",
+                      help="skip training for configs whose checkpoint exists under --root "
+                           "(regenerate + re-evaluate only)")
+    grid.add_argument("--reuse-generated", action="store_true",
+                      help="reuse persisted gen_{dataset}_{config}.npz image sets instead of "
+                           "re-sampling (metric recompute)")
+    for p in (evaluate, probe, grid):
         p.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     sample.add_argument("--n", type=int, default=16)
     sample.add_argument("--out", default="samples.png")
@@ -226,14 +265,16 @@ def run_train(args) -> list[float]:
         config.dataset, config.dataset_path, config.image_size, config.batch_size,
         image_channels=config.image_channels, seed=config.seed, synthetic_fallback=True,
     )
-    return train(config, dl, root=args.root, device=args.device, resume=args.resume)
+    return train(config, dl, root=args.root, device=args.device, resume=args.resume,
+                 profile_dir=args.profile_dir)
 
 
 def run_ddpm(args) -> dict:
     """The ``run`` subcommand: ``tasks.ddpm_run``'s result dict."""
     from aliasfree_diffusion_models_pytorch_tpu_torch.tasks import ddpm_run
 
-    return ddpm_run(config_from_args(args), root=args.root, device=args.device)
+    return ddpm_run(config_from_args(args), root=args.root, device=args.device,
+                    profile_dir=args.profile_dir)
 
 
 def run_sweep(args) -> list[dict]:
@@ -245,8 +286,27 @@ def run_sweep(args) -> list[dict]:
     for v in (int(s) for s in args.variants.split(",")):
         cfg_v = config_from_args(argparse.Namespace(**{**vars(args), "variant": v}))
         print(f"=== sweep: variant {v} -> {cfg_v.run_name} ===")
-        results.append(ddpm_run(cfg_v, root=args.root, device=args.device))
+        results.append(ddpm_run(cfg_v, root=args.root, device=args.device,
+                                profile_dir=args.profile_dir))
     return results
+
+
+def run_reproduce_grid(args) -> dict:
+    """The ``reproduce-grid`` subcommand: the grid's result dict; its table
+    is printed and its JSON written to ``args.out``."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.reproduce import reproduce_grid
+
+    return reproduce_grid(
+        args.dataset, args.dataset_path,
+        configs=args.configs.split(",") if args.configs else None,
+        inception_weights=args.inception_weights,
+        epochs=args.epochs, batch_size=args.batch_size, seed=args.seed,
+        gen_total=args.gen_total, gen_per_batch=args.gen_per_batch,
+        image_size=args.image_size, image_channels=args.image_channels,
+        noise_steps=args.noise_steps, root=args.root, out_path=args.out,
+        resume=args.resume, reuse_checkpoints=args.reuse_checkpoints,
+        reuse_generated=args.reuse_generated, device=args.device,
+    )
 
 
 def run_rotate(args) -> str:
@@ -354,6 +414,12 @@ def main(argv=None) -> int:
         return 0
     if args.cmd == "probe":
         run_probe(args)
+        return 0
+    if args.cmd == "reproduce-grid":
+        from aliasfree_diffusion_models_pytorch_tpu_torch.reproduce import format_grid_markdown
+
+        print(format_grid_markdown(run_reproduce_grid(args)))
+        print(f"wrote {args.out}")
         return 0
     return 1
 

@@ -2,10 +2,9 @@
 
 Mirrors ``aliasfree_diffusion_models_pytorch_tpu/config.py``: the fields of
 :class:`FilterSettings` and of ``TrainConfig`` (model, sampler, data,
-optimizer, EMA, artifact paths) with the same defaults and validation. Not
-carried over: the mesh fields (``mesh_shape``, ``mesh_axes``), which wait for
-multi-GPU training, and ``checkpoint_opt_state``, which waits for optimizer
-state in checkpoints.
+optimizer, EMA, checkpointing, artifact paths) with the same defaults and
+validation. Not carried over: the mesh fields (``mesh_shape``, ``mesh_axes``),
+which wait for multi-GPU training.
 """
 
 from __future__ import annotations
@@ -74,6 +73,9 @@ class TrainConfig:
     compute_dtype: str = "float32"  # "bfloat16" for the tensor-core path
     use_ema: bool = False
     ema_beta: float = 0.995
+    # Also checkpoint AdamW's moments and the step counters (exact resume),
+    # in the JAX package's optax layout.
+    checkpoint_opt_state: bool = False
     time_dim: int = 256
     base_width: int | None = None
     num_classes: int | None = None

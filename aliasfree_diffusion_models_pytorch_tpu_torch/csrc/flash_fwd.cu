@@ -6,7 +6,7 @@
 //   out    = (p rounded to the input dtype) · v, accumulated in f32, divided by Σ;
 //   "stats" also writes m and Σ as (B·H, 1, S) f32, the TPU kernel's layout.
 //
-// What bounds it: at the UNet's head dims (D = 8..64) every (query, key) pair costs one exp and
+// What bounds it: at the UNet's head dims (D = 8..128) every (query, key) pair costs one exp and
 // 4·D flops, while q, k, v and out cross device memory once (4·S·D elements per head). On the
 // tensor cores the products are cheap, so the exp unit and the per-pair f32 work of the softmax
 // (scale, max, sum, rounding) bound it, not memory bytes.
@@ -17,7 +17,9 @@
 //  * K and V stream through two shared-memory buffers of 64 rows, filled by cp.async 16 bytes a
 //    thread (the next tile in flight while this one is used; rows past S zero-filled), rows
 //    padded to an odd number of 16-byte units; ldmatrix gives the B fragments of Kᵀ and
-//    ldmatrix.trans those of V.
+//    ldmatrix.trans those of V. The buffers are dynamic shared memory: 68 KB at D = 128 (the
+//    128-px UNet's 512-channel blocks), above the 48 KB a static array may take, so that
+//    instantiation raises its limit with cudaFuncSetAttribute before it launches.
 //  * Online softmax in the accumulators, in the exp2 domain: scale·log2e is folded into one
 //    FFMA per pair before MUFU.EX2; the row max takes two quad shuffles per tile; the output
 //    accumulators are rescaled once per tile. P is rounded to bf16 in registers and is already
@@ -25,13 +27,14 @@
 //    division by Σ comes last. Stats mode stores m in natural units (m₂·ln 2).
 //  * Small S: a block takes several (b, h) so that no warp idles on rows past S: one warp per
 //    head and four heads a block at S <= 16, two and two at S <= 32, else one head and 64 query
-//    rows a block. The launch plan is computed in Python (ops/flash_attention.py:fwd_plan) and
-//    checked here. Keys past S get −inf logits; queries past S are computed from zero rows and
-//    never stored.
+//    rows a block (at D = 128 always one head a block). The launch plan is computed in Python
+//    (ops/flash_attention.py:fwd_plan) and checked here. Keys past S get −inf logits; queries
+//    past S are computed from zero rows and never stored.
 //
 // f32: flash_fwd_kernel, the CUDA-core kernel of the first port, unchanged: one thread per query
 // row, f32 arithmetic throughout, __expf. It is the exact path the f32 checks hold against the
-// CPU. A bf16 tensor never reaches it.
+// CPU. A bf16 tensor never reaches it. At D = 128 its row of q and its sums outgrow the registers
+// and spill to local memory: right, and slow.
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -170,8 +173,10 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kN = kKeys / 8;                // n-tiles of logits per warp and tile
   constexpr int kO = D / 8;                    // n-tiles of the output
   constexpr int kRowChunks = D / 8;            // 16-byte chunks per row
-  __shared__ __align__(16) bf16 ks[2][kTileRows * kT];
-  __shared__ __align__(16) bf16 vs[2][kTileRows * kT];
+  constexpr int kBuf = kTileRows * kT;         // elements of one K (or V) buffer
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // [2][kBuf]: K, double-buffered
+  bf16* vs = ks + 2 * kBuf;                  // [2][kBuf]: V
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int group = lane >> 2, quad = lane & 3;
@@ -189,8 +194,8 @@ __global__ void __launch_bounds__(kThreads)
       const int hh = head0 + r / kKeys, key = k0 + r % kKeys;
       const bool ok = hh < bh && key < s;
       const size_t off = ok ? (static_cast<size_t>(hh) * s + key) * D + col : 0;
-      afdm::cp_async_16(&ks[buf][r * kT + col], k + off, ok ? 16 : 0);
-      afdm::cp_async_16(&vs[buf][r * kT + col], v + off, ok ? 16 : 0);
+      afdm::cp_async_16(ks + buf * kBuf + r * kT + col, k + off, ok ? 16 : 0);
+      afdm::cp_async_16(vs + buf * kBuf + r * kT + col, v + off, ok ? 16 : 0);
     }
   };
 
@@ -229,8 +234,8 @@ __global__ void __launch_bounds__(kThreads)
       afdm::cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* kt = ks[it & 1] + hr * kT;
-    const bf16* vt = vs[it & 1] + hr * kT;
+    const bf16* kt = ks + (it & 1) * kBuf + hr * kT;
+    const bf16* vt = vs + (it & 1) * kBuf + hr * kT;
 
     // S = Q·Kᵀ: 16 rows × kKeys keys, raw f32 logits.
     float sc[kN][4];
@@ -349,7 +354,14 @@ cudaError_t launch_mma_heads(const void* q, const void* k, const void* v, void* 
   const int q_tiles = kHeads > 1 ? 1 : (s + kTileRows - 1) / kTileRows;
   const long long blocks = static_cast<long long>((bh + kHeads - 1) / kHeads) * q_tiles;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  flash_fwd_mma_kernel<D, kHeads><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  constexpr int kSmem = 4 * kTileRows * afdm::smem_stride<D>() * static_cast<int>(sizeof(bf16));
+  if constexpr (kSmem > 48 * 1024) {
+    // Per device and cheap; set on every launch so that any current device has it.
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel<D, kHeads>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+  }
+  flash_fwd_mma_kernel<D, kHeads><<<static_cast<unsigned>(blocks), kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), m, l, bh, s, q_tiles, scale * kLog2e);
   return cudaGetLastError();
@@ -358,11 +370,17 @@ cudaError_t launch_mma_heads(const void* q, const void* k, const void* v, void* 
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, float* m,
                        float* l, int bh, int s, float scale, int heads, cudaStream_t stream) {
-  switch (heads) {
-    case 1: return launch_mma_heads<D, 1>(q, k, v, out, m, l, bh, s, scale, stream);
-    case 2: return launch_mma_heads<D, 2>(q, k, v, out, m, l, bh, s, scale, stream);
-    case 4: return launch_mma_heads<D, 4>(q, k, v, out, m, l, bh, s, scale, stream);
-    default: return cudaErrorInvalidValue;
+  if constexpr (D == 128) {
+    // One head a block only: with two heads this depth spills registers.
+    if (heads != 1) return cudaErrorInvalidValue;
+    return launch_mma_heads<D, 1>(q, k, v, out, m, l, bh, s, scale, stream);
+  } else {
+    switch (heads) {
+      case 1: return launch_mma_heads<D, 1>(q, k, v, out, m, l, bh, s, scale, stream);
+      case 2: return launch_mma_heads<D, 2>(q, k, v, out, m, l, bh, s, scale, stream);
+      case 4: return launch_mma_heads<D, 4>(q, k, v, out, m, l, bh, s, scale, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -370,7 +388,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, f
 
 // q, k, v, out: contiguous (bh, s, d) arrays of f32 (is_bf16 = 0) or bf16 (is_bf16 = 1), bf16
 // rows 16-byte aligned. m, l: (bh, s) f32 arrays for the softmax max and sum, or both null.
-// heads_per_block: 1, 2 or 4 (bf16 only; 1 for f32), from ops/flash_attention.py:fwd_plan.
+// heads_per_block: 1, 2 or 4 (bf16 only, 1 at d = 128; 1 for f32), from
+// ops/flash_attention.py:fwd_plan.
 // Launches on `stream` and returns the launch's cudaError_t (0 on success).
 extern "C" int afdm_flash_fwd(const void* q, const void* k, const void* v, void* out, void* m,
                               void* l, int bh, int s, int d, float scale, int is_bf16,
@@ -394,6 +413,9 @@ extern "C" int afdm_flash_fwd(const void* q, const void* k, const void* v, void*
     case 64:
       return is_bf16 ? launch_mma<64>(q, k, v, out, mf, lf, bh, s, scale, hp, st)
                      : launch_f32<64>(q, k, v, out, mf, lf, bh, s, scale, st);
+    case 128:
+      return is_bf16 ? launch_mma<128>(q, k, v, out, mf, lf, bh, s, scale, hp, st)
+                     : launch_f32<128>(q, k, v, out, mf, lf, bh, s, scale, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,24 +1,32 @@
-"""Data pipelines (numpy only): MNIST-CSV, synthetic fallback, batch iterator.
+"""Data pipelines (numpy, and the host-side C++ binding): MNIST-CSV,
+image-folder trees, synthetic fallback, batch iterator.
 
 The port's own copy of ``aliasfree_diffusion_models_pytorch_tpu/data.py``:
 
 * :func:`load_mnist_csv`: CSV with a header line, the label in column 0 and
   784 pixel columns; ``/255`` → bilinear 28→32 resize (align_corners=False)
-  → ``(x − 0.5)/0.5`` → [-1, 1]. The whole dataset is held in memory.
+  → ``(x − 0.5)/0.5`` → [-1, 1]. The whole dataset is held in memory. The
+  C++ parser (``utils/native.py``) reads it where it can be built, numpy
+  otherwise, with the same values.
+* :func:`load_image_folder`: a class-per-subdirectory image tree (CIFAR-10 or
+  MNIST-M as PNGs), shorter-edge bilinear resize through PIL, ``/255`` →
+  ``(x − 0.5)/0.5``; gray images keep one channel, the rest become RGB.
 * :func:`synthetic_dataset`: procedural stand-in, bit-equal to the JAX
   package's for the same arguments.
 * :class:`Dataloader`: deterministic shuffling (splitmix64 Fisher-Yates, the
-  same order as the JAX package's loader for the same seed and epoch) and
-  batch gather; NHWC float32 batches.
+  same order as the JAX package's loader for the same seed and epoch) through
+  the C++ binding when it is built and numpy otherwise, with the same order;
+  the batch gather is numpy indexing, which beats the binding's gather at the
+  trainer's batches (PERF.md); NHWC float32 batches.
 * :class:`PrefetchLoader`: background-thread prefetch.
 
-Batches are numpy arrays; the trainer moves them to the card. The
-image-folder loader and the native C++ CSV parser are not ported yet.
+Batches are numpy arrays; the trainer moves them to the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import queue
 import threading
@@ -27,6 +35,9 @@ from typing import Iterator
 import numpy as np
 
 from aliasfree_diffusion_models_pytorch_tpu_torch.ops.resample import resize_matrix_1d
+from aliasfree_diffusion_models_pytorch_tpu_torch.utils import native
+
+IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 
 
 @dataclasses.dataclass
@@ -59,15 +70,57 @@ def resize_bilinear_np(x: np.ndarray, out_size: int) -> np.ndarray:
 
 
 def load_mnist_csv(path: str, image_size: int = 32) -> ArrayDataset:
-    """MNIST from a CSV file: a header line, then ``label,p0,...,p783`` rows."""
-    data = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.float32, ndmin=2)
-    if data.shape[1] != 785:
-        raise ValueError(f"{path}: expected 785 columns (label + 784 pixels), got {data.shape[1]}")
-    labels = data[:, 0].astype(np.int32)
-    feats = (data[:, 1:] / np.float32(255.0)).reshape(-1, 28, 28, 1)
-    feats = resize_bilinear_np(feats, image_size)
+    """MNIST from a CSV file: a header line, then ``label,p0,...,p783`` rows.
+
+    The C++ parser multiplies each pixel by the f32 ``1/255``; the numpy path
+    does the same, so the two give the same bits.
+    """
+    parsed = native.parse_label_pixel_csv(path, cols=784)
+    if parsed is not None:
+        labels, feats = parsed
+    else:
+        data = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.float32, ndmin=2)
+        if data.shape[1] != 785:
+            raise ValueError(
+                f"{path}: expected 785 columns (label + 784 pixels), got {data.shape[1]}")
+        labels = data[:, 0].astype(np.int32)
+        feats = data[:, 1:] * (np.float32(1.0) / np.float32(255.0))
+    feats = resize_bilinear_np(feats.reshape(-1, 28, 28, 1), image_size)
     feats = (feats - 0.5) / 0.5
     return ArrayDataset(feats, labels)
+
+
+def load_image_folder(root: str, image_size: int = 32) -> ArrayDataset:
+    """An image tree with one subdirectory per class (sorted; the label is
+    the index) as an in-memory NHWC dataset: shorter edge resized to
+    ``image_size`` (bilinear, through PIL), ``/255``, ``(x − 0.5)/0.5``.
+    Gray images keep one channel; everything else becomes RGB."""
+    from PIL import Image
+
+    classes = sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))
+    if not classes:
+        raise FileNotFoundError(f"no class subdirectories under {root}")
+    images, labels = [], []
+    for ci, cls in enumerate(classes):
+        cdir = os.path.join(root, cls)
+        for fname in sorted(os.listdir(cdir)):
+            if not fname.lower().endswith(IMAGE_EXTENSIONS):
+                continue
+            with Image.open(os.path.join(cdir, fname)) as opened:
+                img = (opened.convert("L") if opened.mode in ("L", "1", "I;16")
+                       else opened.convert("RGB"))
+            w, h = img.size
+            if min(w, h) != image_size:
+                scale = image_size / min(w, h)
+                img = img.resize((round(w * scale), round(h * scale)), Image.Resampling.BILINEAR)
+            arr = np.asarray(img, dtype=np.float32) / 255.0
+            if arr.ndim == 2:
+                arr = arr[:, :, None]
+            images.append(arr)
+            labels.append(ci)
+    x = np.stack(images)
+    x = (x - 0.5) / 0.5
+    return ArrayDataset(x, np.asarray(labels, np.int32))
 
 
 def synthetic_dataset(
@@ -151,7 +204,10 @@ class Dataloader:
     def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
         n = len(self.dataset)
         if self.shuffle:
-            order = splitmix64_permutation(n, self.seed, self.epoch)
+            order = native.shuffled_permutation(n, self.seed, self.epoch)
+            if order is None:
+                _log_numpy_fallback_once()
+                order = splitmix64_permutation(n, self.seed, self.epoch)
         else:
             order = np.arange(n)
         self.epoch += 1
@@ -159,6 +215,17 @@ class Dataloader:
         for start in range(0, stop, self.batch_size):
             idx = order[start : start + self.batch_size]
             yield self.dataset.images[idx], self.dataset.labels[idx]
+
+
+_NUMPY_FALLBACK_LOGGED = False
+
+
+def _log_numpy_fallback_once() -> None:
+    global _NUMPY_FALLBACK_LOGGED
+    if not _NUMPY_FALLBACK_LOGGED:
+        _NUMPY_FALLBACK_LOGGED = True
+        logging.getLogger(__name__).info(
+            "native loader unavailable; numpy shuffle (the same splitmix64 order)")
 
 
 class PrefetchLoader:
@@ -213,7 +280,7 @@ def get_data(
 ) -> tuple[Dataloader, ArrayDataset]:
     """``(dataloader, dataset)``: the synthetic dataset when no path is given
     (or, with ``synthetic_fallback``, when the path does not exist), the CSV
-    loader for "MNIST". Image-folder datasets are not ported yet."""
+    loader for "MNIST", the image-folder loader for any other dataset."""
     if dataset_path is None or (
         synthetic_fallback and not os.path.exists(dataset_path)
     ):
@@ -222,8 +289,6 @@ def get_data(
     elif dataset == "MNIST":
         ds = load_mnist_csv(dataset_path, image_size)
     else:
-        raise NotImplementedError(
-            f"dataset {dataset!r} at {dataset_path}: the image-folder loader is not ported "
-            "yet; train on MNIST CSV or on the synthetic dataset (no --dataset-path)")
+        ds = load_image_folder(dataset_path, image_size)
     dl = Dataloader(ds, batch_size, shuffle=True, drop_last=drop_last, seed=seed)
     return dl, ds

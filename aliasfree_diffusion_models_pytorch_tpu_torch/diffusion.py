@@ -8,7 +8,8 @@ classifier-free guidance as one batch-doubled forward. The JAX package's
 
 Faithful quirks: the reverse loop runs ``noise_steps-1 … 1``; no noise at the
 last step; with ``theta`` the per-step rotation is ``theta/noise_steps``, so
-the total is ``theta·(N-1)/N``; trajectory snapshots at every
+the total is ``theta·(N-1)/N`` (the dense operator up to 64 px, the gather
+plan above: ``ops/rotation.py:build_rotation``); trajectory snapshots at every
 ``i % snapshot_every == 0`` plus the final state; ``to_uint8`` truncates.
 
 Randomness: each sampler takes a ``torch.Generator`` (on the sampler's

@@ -46,9 +46,13 @@ import torch
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
 
 __all__ = ["attention_reference", "attention_backward_reference", "flash_attention_fwd",
-           "flash_attention_bwd", "flash_mha", "fwd_plan", "bwd_scratch_shapes", "HEAD_DIMS"]
+           "flash_attention_bwd", "flash_mha", "fwd_plan", "bwd_scratch_shapes", "HEAD_DIMS",
+           "BWD_HEAD_DIMS"]
 
-HEAD_DIMS = (8, 16, 32, 64)  # the kernel's template instantiations
+# The kernels' template instantiations: the forward also takes D = 128 (the
+# 128-px UNet's 512-channel blocks, which sample but do not train here).
+HEAD_DIMS = (8, 16, 32, 64, 128)
+BWD_HEAD_DIMS = (8, 16, 32, 64)
 _DTYPES = (torch.float32, torch.bfloat16)
 # bf16 kernels: four warps a block, 16 rows a warp (csrc/flash_fwd.cu, csrc/flash_bwd.cu).
 WARPS = 4
@@ -121,18 +125,22 @@ class FwdPlan:
     blocks: int
 
 
-def fwd_plan(bh: int, s: int) -> FwdPlan:
-    """Launch plan of the bf16 forward for ``bh`` heads of ``s`` queries.
+def fwd_plan(bh: int, s: int, d: int) -> FwdPlan:
+    """Launch plan of the bf16 forward for ``bh`` heads of ``s`` queries of
+    depth ``d``.
 
     A block has four warps of 16 query rows. At S <= 16 one warp covers a
     head, so a block takes four heads; at S <= 32 two warps a head and two
     heads; beyond, one head and 64 query rows a block. The 64 rows of a K/V
     tile are shared out among the block's heads, so no warp idles on rows
-    past S where S is small.
+    past S where S is small. At D = 128 a block always takes one head: the
+    kernel has no several-head instantiation there (they spill registers).
     """
     if bh < 1 or s < 1:
         raise ValueError(f"empty attention input: bh={bh}, s={s}")
     heads = 4 if s <= ROWS_PER_WARP else 2 if s <= 2 * ROWS_PER_WARP else 1
+    if d == 128:
+        heads = 1
     rows = WARPS * ROWS_PER_WARP
     q_tiles = 1 if heads > 1 else -(-s // rows)
     return FwdPlan(heads_per_block=heads, warps_per_head=WARPS // heads,
@@ -182,7 +190,7 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, head_dims=HEAD_DIMS) -> None:
     if q.dim() != 4:
         raise ValueError(f"expected (B, H, S, D) tensors, got shape {tuple(q.shape)}")
     for name, t in (("k", k), ("v", v)):
@@ -193,8 +201,8 @@ def _check(q, k, v) -> None:
                 f"{tuple(q.shape)} {q.dtype} {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention_fwd takes float32 or bfloat16, got {q.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
+    if q.shape[-1] not in head_dims:
+        raise ValueError(f"head dim {q.shape[-1]} not in {head_dims}")
     if q.shape[0] * q.shape[1] < 1 or q.shape[2] < 1:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -232,7 +240,7 @@ def flash_attention_fwd(q, k, v, scale=None, with_stats=False):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             m.data_ptr() if with_stats else None,
             ssum.data_ptr() if with_stats else None,
-            b * h, s, d, scale, int(bf16), fwd_plan(b * h, s).heads_per_block if bf16 else 1,
+            b * h, s, d, scale, int(bf16), fwd_plan(b * h, s, d).heads_per_block if bf16 else 1,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -246,7 +254,7 @@ flash_attention_fwd.launches = 0
 
 
 def _check_bwd(q, k, v, out, m, ssum, g) -> None:
-    _check(q, k, v)
+    _check(q, k, v, BWD_HEAD_DIMS)
     for name, t in (("out", out), ("g", g)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(

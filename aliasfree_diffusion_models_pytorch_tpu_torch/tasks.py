@@ -140,8 +140,10 @@ def ddpm_run(
     device="cuda",
     diagnostics: bool = True,
     generate: bool = True,
+    profile_dir: str | None = None,
 ) -> dict:
-    """Full experiment on ``device``.
+    """Full experiment on ``device`` (``profile_dir``: a profiler trace of a
+    few train steps, see ``train.train``).
 
     Returns a result dict with the per-epoch losses and artifact paths. All
     artifact names and locations follow the reference layout, including its
@@ -215,7 +217,7 @@ def ddpm_run(
                                        os.path.join(runs_dir, "resample_plain.png"))
 
     # 5. Train, then the loss artifacts.
-    loss_all = train(config, dataloader, root=root, device=device)
+    loss_all = train(config, dataloader, root=root, device=device, profile_dir=profile_dir)
     if plots:
         plotting.plot_loss(loss_all, os.path.join(runs_dir, "loss.png"))
     loss_csv = os.path.join(runs_dir, f"trining_loss_MNIST_{config.variant}.csv")  # [sic]

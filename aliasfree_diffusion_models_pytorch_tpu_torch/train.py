@@ -26,6 +26,12 @@ Randomness. One ``torch.Generator`` on the training device, re-seeded for
 every step from ``(seed + 1, global step)``: a resumed run draws what an
 unbroken one would. The step function also takes ``t``, ``noise`` and ``keep``
 directly, which the tests use to hand in another framework's draws.
+
+Resume. ``train(resume=True)`` restores the parameters, the EMA and the step
+count, and with ``config.checkpoint_opt_state`` AdamW's moments, the update
+count and the open accumulation window (``utils/checkpoint.py``); the
+dataloader goes on at the epoch the checkpoint stopped in. So N epochs and
+N = k + (N − k) with a resume between take the same steps on the same data.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ logger = logging.getLogger(__name__)
 
 STEP_START_EMA = 2000  # micro-batches during which the EMA copies the parameters
 LOG_EVERY = 50  # steps between two loss records in metrics.jsonl
+PROFILE_STEPS = (10, 20)  # the steps of a call that ``profile_dir`` traces
 
 
 def lr_at(config: TrainConfig, update: int) -> float:
@@ -285,15 +292,19 @@ def train(
     root: str = ".",
     device="cuda",
     resume: bool = False,
+    profile_dir: str | None = None,
 ) -> list[float]:
     """Full training run on ``device``; returns the per-epoch mean losses.
 
     Artifacts under ``root``: ``results/<run>/<epoch>.jpg`` sample grids,
     ``models/<run>/ckpt_*.npz`` (overwritten each epoch) with ``config.json``
-    beside it, ``runs/<run>/metrics.jsonl``.
+    beside it, ``runs/<run>/metrics.jsonl``. ``profile_dir`` captures a
+    ``torch.profiler`` trace (host and device) of this call's steps
+    ``PROFILE_STEPS`` as ``<profile_dir>/trace_<run>.json``, a Chrome trace.
     """
     from aliasfree_diffusion_models_pytorch_tpu_torch.utils import checkpoint as ckpt_lib
     from aliasfree_diffusion_models_pytorch_tpu_torch.utils.io import save_image_grid
+    from aliasfree_diffusion_models_pytorch_tpu_torch.utils.native import native_status
 
     device = torch.device(device)
     if resume:
@@ -312,6 +323,14 @@ def train(
     if resume and os.path.exists(ckpt_path + ".npz"):
         restored = ckpt_lib.restore_checkpoint(ckpt_path)
         state.load(restored["params"], restored["ema_params"], restored["step"])
+        if config.checkpoint_opt_state:
+            if "opt_state" not in restored:
+                raise KeyError(f"checkpoint {ckpt_path}.npz holds no optimizer state "
+                               "(was it saved without checkpoint_opt_state?)")
+            ckpt_lib.load_opt_state(config, state, restored["opt_state"])
+        if isinstance(dataloader, Dataloader):
+            # The data order goes on at the epoch the checkpoint stopped in.
+            dataloader.epoch = state.step // max(1, len(dataloader))
         logger.info("resumed from %s at step %d", ckpt_path, state.step)
     logger.info("model variant=%d params=%s", config.variant, f"{param_count(model):,}")
     diffusion = Diffusion(
@@ -340,6 +359,8 @@ def train(
     # A resumed run goes on counting where the checkpoint stopped, so its
     # per-step streams continue those of the run that wrote it.
     global_step = state.step
+    run_step = 0  # steps of this call: the profiler's window counts these
+    profiler = None
     with open(metrics_path, "a") as metrics_f:
         metrics_f.write(json.dumps({
             "run_header": config.run_name,
@@ -348,6 +369,8 @@ def train(
             "resumed_step": state.step,
             "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
                        else str(device)),
+            # host-side CSV parsing and batch gather: the C++ binding or numpy
+            "native_loader": native_status(),
         }) + "\n")
         for epoch in range(config.epochs):
             logger.info("Starting epoch %d:", epoch)
@@ -360,11 +383,17 @@ def train(
                 labels = None
                 if config.num_classes:
                     labels = _to_device(np.asarray(lbls, dtype=np.int64), device)
+                if profile_dir is not None and run_step == PROFILE_STEPS[0]:
+                    profiler = _start_profiler()
                 state, loss = step_fn(
                     state, batch, step_generator(generator, config.seed, global_step), labels)
                 epoch_losses.append(loss)
                 imgs += images.shape[0]
                 global_step += 1
+                run_step += 1
+                if profiler is not None and run_step == PROFILE_STEPS[1]:
+                    _stop_profiler(profiler, profile_dir, config.run_name, device)
+                    profiler = None
                 if global_step % LOG_EVERY == 0:
                     loss_value = float(loss)  # waits for the device, once per log point
                     dt = time.perf_counter() - t_start
@@ -390,5 +419,34 @@ def train(
                     generator=step_generator(generator, config.seed, 2**31 + epoch))
                 save_image_grid(final.cpu().numpy(),
                                 os.path.join(config.results_dir(root), f"{epoch}.jpg"))
-            ckpt_lib.save_checkpoint(ckpt_path, state.params, state.ema_params, state.step)
+            opt_state = (ckpt_lib.opt_state_arrays(config, state)
+                         if config.checkpoint_opt_state else None)
+            ckpt_lib.save_checkpoint(ckpt_path, state.params, state.ema_params, state.step,
+                                     opt_state)
+    if profiler is not None:  # the run ended inside the window
+        _stop_profiler(profiler, profile_dir, config.run_name, device)
     return loss_all
+
+
+def _start_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    profiler = profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, profile_dir: str, run_name: str, device: torch.device) -> str:
+    """Close the trace once the device has finished the window's steps and
+    write it as ``<profile_dir>/trace_<run_name>.json``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_{run_name}.json")
+    profiler.export_chrome_trace(path)
+    logger.info("profiler trace written to %s", path)
+    return path

@@ -121,16 +121,27 @@ def load_jax_npz(path: str, ema: bool = False) -> dict[str, torch.Tensor]:
         raise FileNotFoundError(p)
     prefix = "ema_params/" if ema else "params/"
     with np.load(p) as z:
-        flat = {k[len(prefix):]: z[k] for k in z.files if k.startswith(prefix)}
+        flat = {k: z[k] for k in z.files if k.startswith(prefix)}
     if not flat:
         raise KeyError(f"{p} holds no '{prefix}' entries")
+    return state_from_flat(flat, prefix)
+
+
+def state_from_flat(flat: Mapping[str, np.ndarray], prefix: str) -> dict[str, torch.Tensor]:
+    """The entries of a flat ``a/b/c``-keyed archive under ``prefix`` (a JAX
+    parameter tree, or a tree of the same shape such as AdamW's moments) as
+    a ``state_dict``."""
     tree: dict = {}
     for key, value in flat.items():
+        if not key.startswith(prefix):
+            continue
         node = tree
-        *parents, leaf = key.split("/")
+        *parents, leaf = key[len(prefix):].split("/")
         for part in parents:
             node = node.setdefault(part, {})
         node[leaf] = value
+    if not tree:
+        raise KeyError(f"no entries under '{prefix}'")
     return params_from_jax(tree)
 
 

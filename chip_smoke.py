@@ -16,7 +16,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    profile must hold every kernel of every call (three ``flash_bwd*`` kernels
    a bf16 backward call, two an f32 one) or is taken again:
    the forward at every shape of the sampling path (Config D, image 32, base
-   width 32: the six attention blocks at n=16 and at the CFG-doubled n=32);
+   width 32: the six attention blocks at n=16 and at the CFG-doubled n=32;
+   image 128, base width 128: the six blocks at n=4, S up to 16384, D up to
+   128, bf16, and f32 where D = 128);
    the backward at every shape of the training path (the same six blocks at
    batch 256, the six blocks of the 64-px step at batch 32, S up to 4096, and
    S=16384 of a 128-px step at batch 2), with the stats-mode forward that
@@ -52,7 +54,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``eval`` of the generated PNGs against exported training PNGs on the card
    and on the CPU; one Inception-v3 forward at batch 16 with seeded random
    weights, card against CPU;
-9. prints one JSON line of every ported kernel, the card line, and last
+9. drives ``reproduce-grid`` through the CLI on a seeded 320-image tree of
+   32x32 RGB PNGs (configs A and D-2N at full width, 1 epoch at batch 16 =
+   20 steps, 100 noise steps, 32 generated images each), with the wall time
+   and the launches of every training and sampler call (120 + 120 and 1188 +
+   0 per config), then ``--resume`` (no training, no launch, the same rows)
+   and ``--reuse-generated`` (the metrics recomputed equal); the grid's own
+   D-2N training traced over its steps 10-19 (attention's share of the
+   device time and of the wall); ``train`` on a 64-row MNIST CSV (the run
+   header must read ``native_loader: loaded``) and the loader's permutation
+   and batch gather timed, C++ binding against numpy; exact resume in f32 with
+   ``--checkpoint-opt-state`` (2 epochs against 1 + a resumed 1); ``train
+   --profile-dir`` over 25 steps (the trace must name both kernels); the
+   128-px gather rotation card against CPU and the Config-E sampler at 128
+   px (theta 90, 50 noise steps, n=4, bf16, base width 128: 294 launches),
+   wall and device time per step;
+10. prints one JSON line of every ported kernel, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the ``ok``
@@ -67,6 +84,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -119,6 +137,11 @@ ATTN_SHAPES_64 = [("sa1", 1024, 128), ("sa2", 256, 256), ("sa3", 64, 256),
 # The longest sequence the JAX package trains (image 128, base width 128):
 # checked against the plain version at batch 2; no train step runs it here.
 ATTN_SHAPES_128 = [("sa6", 16384, 128)]
+# The 128-px sampler (image 128, base width 128, n=4, phase 8): (block, S, C);
+# sa2 and sa3 have 512 channels, a head depth of 128.
+ATTN_SAMPLE_SHAPES_128 = [("sa1", 4096, 256), ("sa2", 1024, 512), ("sa3", 256, 512),
+                          ("sa4", 1024, 256), ("sa5", 4096, 128), ("sa6", 16384, 128)]
+SAMPLE_N_128 = 4
 # The plain backward holds about six S×S f32 arrays per (batch, head): it is
 # compared, and timed, at the largest batch that keeps one of them under this.
 PLAIN_SS_BYTES = 5 * 2**30
@@ -358,6 +381,49 @@ def phase_kernels(fa) -> dict:
                     f" bound {row['bound_ms'] * 1e3:6.2f} ({row['bound_by']}) | per call us:"
                     f" kernel {row['call_ms'] * 1e3:6.1f} plain {row['plain_call_ms'] * 1e3:6.1f}"
                     f" sdpa {row['library_call_ms'] * 1e3:6.1f}")
+    # The 128-px sampler's shapes: bf16 at every block, f32 too where D = 128.
+    # The plain version runs at the batch of PLAIN_SS_BYTES (`plain_bh`).
+    n = SAMPLE_N_128
+    for block, s, c in ATTN_SAMPLE_SHAPES_128:
+        d = c // HEADS
+        scale = 1.0 / math.sqrt(d)
+        n_plain = max(1, min(n, PLAIN_SS_BYTES // (HEADS * s * s * 4)))
+        for dtype in (torch.bfloat16, torch.float32) if d == 128 else (torch.bfloat16,):
+            q, k, v = (torch.randn((n, HEADS, s, d), generator=g, device="cuda").to(dtype)
+                       for _ in range(3))
+            out_s, m, ssum = fa.flash_attention_fwd(q, k, v, scale, with_stats=True)
+            out = fa.flash_attention_fwd(q, k, v, scale)
+            qs, ks, vs = (t[:n_plain].contiguous() for t in (q, k, v))
+            ref, ref_m, ref_s = fa.attention_reference(qs, ks, vs, scale, with_stats=True)
+            torch.cuda.synchronize()
+            err, rel = max(errors(out[:n_plain], ref), errors(out_s[:n_plain], ref))
+            m_err = (m[:n_plain * HEADS] - ref_m).abs().max().item()
+            s_rel = ((ssum[:n_plain * HEADS] - ref_s).abs() / ref_s).max().item()
+            del ref, ref_m, ref_s, out_s, m, ssum
+            tag = f"128px {block} n={n} S={s} D={d} {str(dtype)[6:]}"
+            check(rel <= REL_TOL[dtype],
+                  f"{tag}: out err {err} is {rel} of max |out| > {REL_TOL[dtype]}")
+            check(m_err <= M_ATOL, f"{tag}: stats m err {m_err}")
+            check(s_rel <= SUM_RTOL, f"{tag}: stats sum rel err {s_rel}")
+            max_err[dtype] = max(max_err[dtype], err)
+            max_rel[dtype] = max(max_rel[dtype], rel)
+            row = dict(px=128, block=block, n=n, bh=n * HEADS, s=s, d=d, dtype=str(dtype)[6:],
+                       max_abs_err=err, max_rel_err=rel, plain_bh=n_plain * HEADS)
+            calls = {"": lambda: fa.flash_attention_fwd(q, k, v, scale),
+                     "plain_": lambda: fa.attention_reference(qs, ks, vs, scale),
+                     "library_": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)}
+            for key, fn in calls.items():
+                per_call = {"flash_fwd": 1} if key == "" else None
+                row[f"{key}ms"] = device_ms(fn, iters=5, per_call=per_call)
+                row[f"{key}call_ms"] = call_ms(fn, iters=10, warmup=1)
+            row["bound_ms"], row["bound_by"] = bound([attention_times(n * HEADS, s, d, dtype)])
+            rows.append(row)
+            log(f"  {tag:<34} err {err:.1e} ({rel:.1e} of max)  device us:"
+                f" kernel {row['ms'] * 1e3:8.1f} plain(bh={row['plain_bh']}) "
+                f"{row['plain_ms'] * 1e3:8.1f} sdpa {row['library_ms'] * 1e3:8.1f}"
+                f" bound {row['bound_ms'] * 1e3:7.2f} ({row['bound_by']})")
+            del q, k, v, out, qs, ks, vs
+        torch.cuda.empty_cache()
     return dict(rows=rows, max_err=max_err, max_rel=max_rel)
 
 
@@ -987,6 +1053,360 @@ def phase_study(fa, kp, cli) -> dict:
     return results
 
 
+GRID_FLAGS = ["--dataset", "CIFAR10", "--configs", "A,D-2N", "--epochs", "1",
+              "--batch-size", "16", "--gen-total", "32", "--gen-per-batch", "16",
+              "--noise-steps", "100", "--device", "cuda"]
+GRID_TREE = (10, 32)  # class directories, 32x32 RGB PNGs in each: 320 images
+# Exact resume on the card, as a share of each tensor's largest entry. AdamW
+# divides by the root of the second moment, so a parameter whose true gradient
+# is 0 (the key part of each attention's qkv bias: softmax ignores a shift of
+# the keys) moves by about lr a step whatever the rounding noise in its
+# gradient; noise that differs between runs (cuDNN's weight-gradient
+# algorithms that add with atomics) then shows there at 3e-3 after 16 steps.
+# The phase runs deterministic algorithms, and the runs must then agree.
+RESUME_REL_TOL = 1e-5
+ROTATE_ATOL = 1e-5  # f32 gather and prefilter, card (TF32 off) against the CPU
+
+
+def write_image_tree(root: str, classes: int, per_class: int, seed: int) -> None:
+    """A seeded CIFAR-like tree: one directory of 32x32 RGB PNGs per class."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for c in range(classes):
+        d = os.path.join(root, f"class_{c}")
+        os.makedirs(d)
+        for i in range(per_class):
+            # smooth blobs: a random 4x4 pattern upsampled, plus noise
+            base = np.kron(rng.integers(0, 256, (4, 4, 3)), np.ones((8, 8, 1)))
+            img = np.clip(base + rng.normal(0, 20, (32, 32, 3)), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(d, f"{i}.png"))
+
+
+def phase_grid(fa, cli) -> dict:
+    """reproduce-grid on an image tree, its --resume and --reuse-generated, an
+    MNIST CSV through the native loader, exact resume in f32, --profile-dir,
+    and the 128-px Config-E sampler through the gather plan."""
+    import shutil
+
+    from aliasfree_diffusion_models_pytorch_tpu_torch import data
+    from aliasfree_diffusion_models_pytorch_tpu_torch import train as train_mod
+    from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
+    from aliasfree_diffusion_models_pytorch_tpu_torch.ops import rotation
+    from aliasfree_diffusion_models_pytorch_tpu_torch.utils import native
+
+    root = os.path.join(OUT_DIR, "grid_root")
+    shutil.rmtree(root, ignore_errors=True)
+    tree = os.path.join(root, "tree")
+    write_image_tree(tree, *GRID_TREE, seed=5)
+    out = os.path.join(root, "grid.json")
+    grid_args = ["reproduce-grid", *GRID_FLAGS, "--dataset-path", tree, "--root", root,
+                 "--out", out]
+    results: dict = {}
+
+    def counts():
+        return fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+
+    # Spies: each training run and each sampler call of the grid, with its
+    # wall time and the launches it made. The training run named in
+    # `traced` writes a profiler trace of its steps 10-19; the trace's export
+    # is timed apart and left out of that run's wall time.
+    events: list[dict] = []
+    exports: list[float] = []
+    traced = {"run": None}
+    grid_prof = os.path.join(root, "grid_profile")
+    plain_train, plain_sample, plain_stop = (train_mod.train, Diffusion.sample,
+                                             train_mod._stop_profiler)
+
+    def timed_stop(*a, **k):
+        t0 = time.perf_counter()
+        path = plain_stop(*a, **k)
+        exports.append(time.perf_counter() - t0)
+        return path
+
+    def spied(kind, fn):
+        def run(*a, **k):
+            name = getattr(a[0], "run_name", None)
+            if kind == "train" and name == traced["run"]:
+                k = {**k, "profile_dir": grid_prof}
+            torch.cuda.synchronize()
+            before, n_exports, t0 = counts(), len(exports), time.perf_counter()
+            value = fn(*a, **k)
+            torch.cuda.synchronize()
+            after, exported = counts(), sum(exports[n_exports:])
+            events.append(dict(kind=kind, wall_s=time.perf_counter() - t0 - exported,
+                               trace_export_s=exported, fwd=after[0] - before[0],
+                               bwd=after[1] - before[1], run=name))
+            return value
+        return run
+
+    def grid(extra):
+        events.clear()
+        train_mod.train = spied("train", plain_train)
+        Diffusion.sample = spied("sample", plain_sample)
+        train_mod._stop_profiler = timed_stop
+        try:
+            torch.cuda.synchronize()
+            fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+            t0 = time.perf_counter()
+            check(cli.main([*grid_args, *extra]) == 0, f"reproduce-grid {extra}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            train_mod.train, Diffusion.sample = plain_train, plain_sample
+            train_mod._stop_profiler = plain_stop
+        with open(out) as f:
+            return json.load(f), wall, counts(), list(events)
+
+    steps = GRID_TREE[0] * GRID_TREE[1] // 16
+    sampler = 2 * 6 * (100 - 1)  # two chunks of 16, 99 denoising steps, six attention blocks
+    traced["run"] = "grid_CIFAR10_D-2N"
+    result, wall, total, evs = grid([])
+    traced["run"] = None
+    per_config = []
+    for i, name in enumerate(("A", "D-2N")):
+        tr = [e for e in evs if e["kind"] == "train"][i]
+        gen = [e for e in evs if e["kind"] == "sample"][2 * i: 2 * i + 2]
+        row = result["rows"][i]
+        entry = dict(config=name, train_s=tr["wall_s"], trace_export_s=tr["trace_export_s"],
+                     gen_s=sum(e["wall_s"] for e in gen),
+                     train_launches=[tr["fwd"], tr["bwd"]],
+                     gen_launches=[sum(e["fwd"] for e in gen), sum(e["bwd"] for e in gen)],
+                     final_loss=row["final_loss"], row=row)
+        per_config.append(entry)
+        log(f"  grid {name}: train {entry['train_s']:.2f} s ({steps} steps, launches fwd/bwd "
+            f"{entry['train_launches']}), generation {entry['gen_s']:.2f} s (launches "
+            f"{entry['gen_launches']}), final loss {row['final_loss']}, row {json.dumps(row)}")
+        check(entry["train_launches"] == [6 * steps, 6 * steps],
+              f"grid {name} training launches {entry['train_launches']}")
+        check(entry["gen_launches"] == [sampler, 0],
+              f"grid {name} generation launches {entry['gen_launches']}")
+        check(math.isfinite(row["fid_raw"]) and math.isfinite(row["kid_x100_raw"])
+              and math.isfinite(row["is_raw"]) and math.isfinite(row["final_loss"]),
+              f"grid {name}: row {row}")
+        with np.load(os.path.join(root, row["gen_images"])) as z:
+            check(z["images"].shape == (32, 32, 32, 3) and z["images"].dtype == np.uint8,
+                  f"grid {name}: generated set {z['images'].shape}")
+    check(result["complete"] and result["real_data"] and not result["comparable_to_published"]
+          and [r["config"] for r in result["rows"]] == ["A", "D-2N"], "grid artifact")
+    check(total == (2 * (6 * steps + sampler), 2 * 6 * steps), f"grid launches {total}")
+    log(f"  grid: {wall:.2f} s wall, launches fwd/bwd {list(total)}")
+    results["grid"] = dict(wall_s=wall, launches=list(total), configs=per_config)
+
+    resumed, wall, total, evs = grid(["--resume"])
+    check(total == (0, 0) and not evs, f"grid --resume: launches {total}, calls {len(evs)}")
+    check(resumed["rows"] == result["rows"], "grid --resume: rows differ")
+    log(f"  grid --resume: {wall:.2f} s, no training, no launches, the same rows")
+    results["grid_resume"] = dict(wall_s=wall, launches=list(total))
+
+    reused, wall, total, evs = grid(["--reuse-generated"])
+    check(total == (0, 0) and not evs, f"grid --reuse-generated: launches {total}")
+    for a, b in zip(reused["rows"], result["rows"]):
+        for key in ("is_raw", "fid_raw", "kid_x100_raw"):
+            check(abs(a[key] - b[key]) <= EVAL_ATOL + EVAL_RTOL * abs(b[key]),
+                  f"grid --reuse-generated {a['config']} {key}: {a[key]} vs {b[key]}")
+        check({k: v for k, v in a.items() if not k.endswith("_raw") and k not in
+               ("is", "fid", "kid_x100")} == {k: v for k, v in b.items() if not
+               k.endswith("_raw") and k not in ("is", "fid", "kid_x100")},
+              f"grid --reuse-generated {a['config']}: rows differ")
+    log(f"  grid --reuse-generated: {wall:.2f} s, metrics recomputed equal to the rows")
+    results["grid_reuse_generated"] = dict(wall_s=wall, launches=list(total))
+
+    # Attention's share of the grid's own D-2N training, steps 10-19.
+    kernels, span_ms = read_trace(os.path.join(grid_prof, "trace_grid_CIFAR10_D-2N.json"))
+    busy = sum(us for _, us in kernels) / 1e3
+    attn = {key: sum(us for n_, us in kernels if key in n_) / 1e3
+            for key in ("flash_fwd", "flash_bwd")}
+    found = {key: sum(key in n_ for n_, _ in kernels) for key in attn}
+    check(all(found.values()), f"grid trace: attention kernels {found}")
+    share = sum(attn.values())
+    results["grid_step"] = dict(
+        steps=10, wall_ms_per_step=span_ms / 10, device_busy_ms_per_step=busy / 10,
+        flash_fwd_ms_per_step=attn["flash_fwd"] / 10, flash_bwd_ms_per_step=attn["flash_bwd"] / 10,
+        kernel_events=found, attention_share_of_device=share / busy,
+        attention_share_of_wall=share / span_ms, idle_share=1.0 - busy / span_ms)
+    log(f"  grid D-2N training, steps 10-19 traced: {span_ms / 10:.2f} ms per step wall, "
+        f"device busy {busy / 10:.3f} ms, attention {share / 10:.4f} ms per step = "
+        f"{share / busy:.4f} of device time, {share / span_ms:.5f} of the wall "
+        f"(kernel events {found}; trace export {per_config[1]['trace_export_s']:.2f} s, "
+        f"left out of the train time)")
+
+    # MNIST CSV through the C++ loader.
+    rng = np.random.default_rng(6)
+    csv_path = os.path.join(root, "mnist.csv")
+    rows = np.concatenate([rng.integers(0, 10, (64, 1)), rng.integers(0, 256, (64, 784))], axis=1)
+    np.savetxt(csv_path, rows, fmt="%d", delimiter=",", comments="",
+               header=",".join(["label"] + [f"p{i}" for i in range(784)]))
+    mnist_root = os.path.join(root, "mnist_root")
+    fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    check(cli.main(["train", "--dataset", "MNIST", "--dataset-path", csv_path,
+                    "--image-channels", "1", "--epochs", "1", "--batch-size", "16",
+                    "--image-gen-per-epoch", "0", "--root", mnist_root, "--device", "cuda"]) == 0,
+          "train on the MNIST CSV")
+    wall = time.perf_counter() - t0
+    with open(os.path.join(mnist_root, "runs", "DDPM_Uncondtional_MNIST_3", "metrics.jsonl")) as f:
+        header = json.loads(f.readline())
+    check(header["native_loader"] == "loaded", f"MNIST CSV: native_loader {header['native_loader']}")
+    check(counts() == (24, 24), f"MNIST CSV: launches {counts()}")
+    log(f"  train on a 64-row MNIST CSV: {wall:.2f} s, native_loader {header['native_loader']}, "
+        f"launches {list(counts())}")
+    results["mnist_csv"] = dict(wall_s=wall, native_loader=header["native_loader"],
+                                launches=list(counts()), loader_us=time_loader(data, native))
+
+    # Exact resume in f32: 2 epochs straight against 1 + a resumed 1.
+    resume_flags = ["train", "--compute-dtype", "float32", "--checkpoint-opt-state",
+                    "--batch-size", "64", "--image-gen-per-epoch", "0", "--dataset", "CIFAR10",
+                    "--device", "cuda"]
+    straight, split = os.path.join(root, "straight"), os.path.join(root, "split")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)  # names what is not
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            check(cli.main([*resume_flags, "--epochs", "2", "--root", straight]) == 0, "2 epochs")
+            check(cli.main([*resume_flags, "--epochs", "1", "--root", split]) == 0, "1 epoch")
+            check(cli.main([*resume_flags, "--epochs", "1", "--root", split, "--resume"]) == 0,
+                  "resume")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    wall = time.perf_counter() - t0
+    nondeterministic = sorted({str(w.message)[:120] for w in caught
+                               if "deterministic" in str(w.message)})
+    log(f"  exact resume: ops without a deterministic version: {nondeterministic or 'none'}")
+    ckpt = os.path.join("models", "DDPM_Uncondtional_CIFAR10_3", "ckpt_CIFAR10_3.npz")
+    worst, worst_key = 0.0, ""
+    with np.load(os.path.join(straight, ckpt)) as a, np.load(os.path.join(split, ckpt)) as b:
+        check(set(a.files) == set(b.files) and int(a["step"]) == int(b["step"]) == 16,
+              "exact resume: checkpoint keys or steps")
+        check(any(k.startswith("opt_state/0/.mu/") for k in a.files), "no AdamW moments saved")
+        for key in a.files:
+            share = float(np.abs(a[key].astype(np.float64) - b[key]).max()) / max(
+                float(np.abs(a[key]).max()), 1e-30)
+            if share > worst:
+                worst, worst_key = share, key
+    log(f"  exact resume, f32, 16 steps: worst difference {worst:.2e} of its tensor's largest "
+        f"entry ({worst_key or 'none'}; limit {RESUME_REL_TOL}); {wall:.2f} s for the three runs")
+    check(worst <= RESUME_REL_TOL, f"exact resume: {worst_key} differs by {worst}")
+    results["exact_resume"] = dict(worst_rel=worst, worst_key=worst_key, wall_s=wall,
+                                   nondeterministic_ops=nondeterministic)
+
+    # --profile-dir: 25 steps (512 synthetic images at batch 21), steps 10-19 traced.
+    prof_dir = os.path.join(root, "profile")
+    check(cli.main(["train", "--batch-size", "21", "--epochs", "1", "--image-gen-per-epoch", "0",
+                    "--dataset", "CIFAR10", "--root", os.path.join(root, "prof_root"),
+                    "--profile-dir", prof_dir, "--device", "cuda"]) == 0, "train --profile-dir")
+    trace = os.path.join(prof_dir, "trace_DDPM_Uncondtional_CIFAR10_3.json")
+    check(os.path.exists(trace), f"no trace at {trace}")
+    kernels, _ = read_trace(trace)
+    found = {key: sum(key in n for n, _ in kernels) for key in ("flash_fwd", "flash_bwd")}
+    check(all(found.values()), f"trace {trace}: kernels {found}")
+    log(f"  train --profile-dir: {os.path.getsize(trace) / 1e6:.1f} MB trace, kernel events "
+        f"{found} (10 steps: 60 forward, 180 backward expected)")
+    results["profile_dir"] = dict(trace_bytes=os.path.getsize(trace), kernel_events=found)
+
+    # Config E at 128 px: the gather plan, card against CPU, then the sampler.
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 128, 128, 3)).astype(np.float32))
+    rot_err = {}
+    for order in (1, 3):
+        check(isinstance(rotation.build_rotation(128, 1.8, order, "cuda"), rotation.GatherRotation),
+              "128 px: not the gather plan")
+        got = rotation.rotate_nhwc(x.cuda(), 1.8, order).cpu()
+        rot_err[order] = (got - rotation.rotate_nhwc(x, 1.8, order)).abs().max().item()
+        check(rot_err[order] <= ROTATE_ATOL, f"rotate_nhwc 128 px order {order}: {rot_err[order]}")
+    log(f"  rotate_nhwc 128 px, card vs cpu: order 1 {rot_err[1]:.1e}, order 3 {rot_err[3]:.1e} "
+        f"(limit {ROTATE_ATOL})")
+    operands = []
+    plain_build = rotation.build_rotation
+
+    def spy_build(*a, **k):
+        operands.append(plain_build(*a, **k))
+        return operands[-1]
+
+    sample_args = cli.build_parser().parse_args(
+        ["sample", "--random-weights", "--image-size", "128", "--theta", "90",
+         "--noise-steps", "50", "--n", "4", "--device", "cuda",
+         "--out", os.path.join(root, "e128.png")])
+    import aliasfree_diffusion_models_pytorch_tpu_torch.diffusion as diffusion_mod
+
+    diffusion_mod.build_rotation = spy_build
+    try:
+        cli.run_sample(sample_args)  # first call: the plan and the 128-px operands built
+        torch.cuda.synchronize()
+        fa.flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        final = cli.run_sample(sample_args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        diffusion_mod.build_rotation = plain_build
+    launches = fa.flash_attention_fwd.launches
+    check(all(isinstance(op, rotation.GatherRotation) for op in operands) and operands,
+          "128-px sampler did not take the gather plan")
+    check(launches == 6 * 49, f"128-px sampler: {launches} launches, expected {6 * 49}")
+    check(final.shape == (4, 128, 128, 3) and final.std() > 0, "128-px sampler output")
+    events_, pwall = device_events(lambda: cli.run_sample(sample_args), {"flash_fwd": 6 * 49})
+    busy = sum(us for _, us in events_) / 1e3
+    attn = sum(us for n_, us in events_ if "flash_fwd" in n_) / 1e3
+    results["config_e_128"] = dict(wall_s=wall, launches=launches, steps=49,
+                                   ms_per_step=wall / 49 * 1e3, device_ms_per_step=busy / 49,
+                                   flash_fwd_ms_per_step=attn / 49, rotate_err=rot_err)
+    log(f"  sample 128 px, Config E (theta 90, 50 noise steps, n=4, bf16, base width 128): "
+        f"{wall:.2f} s, {wall / 49 * 1e3:.1f} ms per step wall, {busy / 49:.2f} ms per step on the "
+        f"device (flash_fwd {attn / 49:.2f} ms), {launches} launches, gather plan")
+    return results
+
+
+def read_trace(path: str) -> tuple[list[tuple[str, float]], float]:
+    """The kernels of a torch.profiler Chrome trace as (name, device us), and
+    the trace's span in ms, first event start to last event end."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [(e.get("name", ""), float(e["dur"])) for e in events if e.get("cat") == "kernel"]
+    span_us = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+               - min(float(e["ts"]) for e in events))
+    return kernels, span_us / 1e3
+
+
+def time_loader(data, native) -> dict:
+    """Host microseconds per call of the loader's two per-epoch and per-batch
+    operations, the C++ binding against numpy (median of repeats): the
+    splitmix64 permutation of the grid tree's 320 images and of MNIST's 60000,
+    and the gather of a batch of 16 from 4096 32x32x3 f32 images (the grid's)."""
+    def median_us(fn, reps):
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e6
+
+    check(native.load_native() is not None, "native loader not built")
+    out = {}
+    for n, reps in ((320, 200), (60000, 9)):
+        out[f"permutation_{n}"] = dict(
+            cpp=median_us(lambda: native.shuffled_permutation(n, 42, 1), reps),
+            numpy=median_us(lambda: data.splitmix64_permutation(n, 42, 1), reps))
+    images = np.random.default_rng(8).standard_normal((4096, 32, 32, 3)).astype(np.float32)
+    perm = data.splitmix64_permutation(len(images), 42, 1)
+    check(np.array_equal(native.gather_batch(images, perm, 160, 16), images[perm[160:176]]),
+          "native gather differs from numpy indexing")
+    out["gather_16x32x32x3"] = dict(
+        cpp=median_us(lambda: native.gather_batch(images, perm, 160, 16), 2000),
+        numpy=median_us(lambda: images[perm[160:176]], 2000))
+    for key, t in out.items():
+        log(f"  loader {key}: C++ {t['cpp']:.2f} us, numpy {t['numpy']:.2f} us per call "
+            f"(host)")
+    return out
+
+
 def profile_step(step, state, batch) -> dict:
     """Device time and kernel count of one train step (torch.profiler)."""
     events, wall = device_events(lambda: step(state, batch)[1].item(),
@@ -1061,6 +1481,7 @@ def phase_step_time(fa, config) -> list[dict]:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false — needs a CUDA GPU")
     from aliasfree_diffusion_models_pytorch_tpu_torch import cli, probes
@@ -1142,6 +1563,11 @@ def main() -> int:
     log("[7] study path: CLI probe, run, rotate, shift, eval; Inception forward")
     study = phase_study(fa, kp, cli)
     done("study path")
+    log("[8] reproduce-grid on an image tree; MNIST CSV; exact resume; --profile-dir; "
+        "Config E at 128 px")
+    grid = phase_grid(fa, cli)
+    done("grid and the rest")
+    log(f"  [whole script: {time.perf_counter() - t_start:.1f} s]")
 
     main_rows = [r for r in kres["rows"] if r["n"] == 16 and r["dtype"] == "bfloat16"]
     main_bound, main_bound_by = bound(
@@ -1170,7 +1596,12 @@ def main() -> int:
         "kernels_per_launch": 1,
         "ptxas": [e for e in ptxas if e["library"] == "flash_fwd"],
         "shapes": kres["rows"],
-        "main_path_runs": runs,
+        "main_path_runs": runs + [
+            {"run": "grid_" + c["config"], "train_launches": c["train_launches"][0],
+             "gen_launches": c["gen_launches"][0], "train_s": c["train_s"], "gen_s": c["gen_s"]}
+            for c in grid["grid"]["configs"]] + [
+            {"run": "sample_128px_config_e", "launches": grid["config_e_128"]["launches"],
+             "wall_s": grid["config_e_128"]["wall_s"]}],
         "train_path_launches": train_runs[0]["fwd_launches"],
     }, {
         "name": "flash_bwd",
@@ -1198,7 +1629,9 @@ def main() -> int:
         "kernels_per_launch": {str(k)[6:]: v for k, v in BWD_KERNELS.items()},
         "ptxas": [e for e in ptxas if e["library"] == "flash_bwd"],
         "shapes": bres["rows"],
-        "main_path_runs": train_runs,
+        "main_path_runs": train_runs + [
+            {"run": "grid_" + c["config"], "train_launches": c["train_launches"][1],
+             "train_s": c["train_s"]} for c in grid["grid"]["configs"]],
         "train_step": step_rows,
     }, {
         "name": "exp_chain",
@@ -1251,6 +1684,7 @@ def main() -> int:
         "main_path_runs": {"probe_headpack": study["probe_headpack"],
                            "result": study["probe_headpack_result"]},
     }], "study_path": {k: v for k, v in study.items() if not k.startswith("probe_")},
+        "grid_path": grid,
         "profiler_shortfalls": PROFILER_SHORTFALLS}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)  # the nvidia-smi line as it printed it

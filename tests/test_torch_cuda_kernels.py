@@ -61,7 +61,7 @@ def _assert_within_bf16_ulps(got, ref, name):
     assert err <= limit, f"{name}: max error {err} > {limit} (2^-6 of the largest entry)"
 
 
-@pytest.mark.parametrize("s,d", [(200, 16), (16, 32), (1024, 8), (300, 64)])
+@pytest.mark.parametrize("s,d", [(200, 16), (16, 32), (1024, 8), (300, 64), (256, 128)])
 def test_forward_kernel_matches_plain_version(card, s, d):
     q, k, v = _tensors(card, 2, 4, s, d, 3, seed=s)
     before = fa.flash_attention_fwd.launches
@@ -123,6 +123,23 @@ def test_bf16_tensor_core_kernels_at_main_path_shapes(card, b, h, s, d):
     for name, a, r in zip(("dq", "dk", "dv"), got, ref):
         assert bool(torch.isfinite(a).all()), name
         _assert_within_bf16_ulps(a, r, name)
+
+
+@pytest.mark.parametrize("b,h,s", [(4, 4, 16), (2, 4, 32), (1, 4, 300), (1, 4, 1024)],
+                         ids=["s16_four_heads", "s32_two_heads", "s300_ragged", "s1024"])
+def test_bf16_forward_at_head_dim_128(card, b, h, s):
+    """D = 128 (sa2 and sa3 of the 128-px UNet): the forward takes it, in
+    dynamic shared memory above 48 KB; the backward has no such
+    instantiation and refuses it."""
+    q, k, v = _tensors(card, b, h, s, 128, 3, seed=s, dtype=torch.bfloat16)
+    out, m, ssum = fa.flash_attention_fwd(q, k, v, with_stats=True)
+    ref_out, ref_m, ref_s = fa.attention_reference(q, k, v, with_stats=True)
+    _assert_within_bf16_ulps(out, ref_out, "out")
+    _assert_within_bf16_ulps(fa.flash_attention_fwd(q, k, v), ref_out, "out (fold mode)")
+    torch.testing.assert_close(m, ref_m, rtol=0, atol=1e-5)
+    torch.testing.assert_close(ssum, ref_s, rtol=1e-4, atol=0)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bwd(q, k, v, out, m, ssum, torch.zeros_like(q))
 
 
 def test_bf16_kernels_refuse_misaligned_rows(card):

@@ -86,8 +86,12 @@ def test_mnist_csv_and_get_data(tmp_path):
     _, synth = tdata.get_data("CIFAR10", None, 16, 4, seed=3)
     np.testing.assert_array_equal(
         synth.images, jdata.synthetic_dataset(image_size=16, seed=3, channels=3).images)
-    with pytest.raises(NotImplementedError, match="image-folder"):
-        tdata.get_data("CIFAR10", str(tmp_path), 32, 2)
+    # any other dataset with a path is an image tree: one directory per class
+    (tmp_path / "tree" / "c0").mkdir(parents=True)
+    from PIL import Image
+    Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(tmp_path / "tree" / "c0" / "0.png")
+    _, tree = tdata.get_data("CIFAR10", str(tmp_path / "tree"), 32, 2)
+    assert tree.images.shape == (1, 32, 32, 3) and float(tree.images.max()) == -1.0
 
 
 def _jax_params(variant=3, num_classes=4):
@@ -143,7 +147,7 @@ def test_jax_checkpoint_restored_by_port(tmp_path):
 
 def test_train_config_matches_jax_defaults_and_validation():
     jcfg, tcfg = JTrainConfig(), TrainConfig()
-    left_out = {"mesh_shape", "mesh_axes", "checkpoint_opt_state"}
+    left_out = {"mesh_shape", "mesh_axes"}
     jfields = {k: v for k, v in vars(jcfg).items() if k not in left_out}
     assert vars(tcfg) == jfields
     assert json.loads(tcfg.to_json()) == {k: v for k, v in json.loads(jcfg.to_json()).items()

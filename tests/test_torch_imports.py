@@ -57,7 +57,8 @@ print(json.dumps({{"imported": names, "loaded": sorted(set(sys.modules) - before
                                ".models.unet", ".ops.flash_attention", ".utils.checkpoint",
                                ".utils.kernels", ".utils.weights", ".ops.probes", ".probes",
                                ".eval", ".eval_inception", ".tasks", ".utils.io",
-                               ".utils.plotting", ".utils.jax_random")} <= set(result["imported"])
+                               ".utils.plotting", ".utils.jax_random", ".reproduce",
+                               ".utils.native", ".utils.torch_compat")} <= set(result["imported"])
     # importing the port builds no kernel and needs neither triton nor a CUDA toolchain
     assert "triton" not in result["loaded"]
     # the image and plotting libraries are imported where they are used, not at import
@@ -80,7 +81,7 @@ def test_port_sources_import_no_jax():
     assert len(files) > 20
     names = {f.name for f in files}
     assert {"probes.py", "eval.py", "eval_inception.py", "tasks.py", "plotting.py",
-            "jax_random.py"} <= names
+            "jax_random.py", "reproduce.py", "native.py", "torch_compat.py"} <= names
     bad = {str(f.relative_to(REPO)): m for f in files for m in _imports(f) if _forbidden(m)}
     assert not bad, bad
 
@@ -99,3 +100,16 @@ def test_every_kernel_source_is_registered_and_present():
         for banned in ("cublas", "cutlass/gemm/device", "torch/extension.h", "ATen"):
             assert banned not in text, (source, banned)
     assert "--use_fast_math" not in kernels.NVCC_FLAGS and "-use_fast_math" not in kernels.NVCC_FLAGS
+
+
+def test_the_port_builds_only_from_its_own_sources():
+    """The C++ data binding compiles the port's own copy of the source into
+    the port's build directory, never the JAX package's ``native/``."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels, native
+
+    pkg = REPO / PORT
+    assert native.SOURCE.resolve().is_relative_to(pkg) and native.SOURCE.exists()
+    assert native.BUILD_DIR.resolve() == REPO / "build" / "torch_native"
+    assert kernels.CSRC.resolve() == pkg / "csrc"
+    text = (REPO / PORT / "utils" / "native.py").read_text()
+    assert '"native"' not in text and "native/build" not in text

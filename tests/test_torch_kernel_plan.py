@@ -26,7 +26,9 @@ from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
 ])
 def test_forward_plan_fills_every_warp_with_real_rows(s, heads, warps, keys, q_tiles):
     bh = 1024
-    plan = fa.fwd_plan(bh, s)
+    plan = fa.fwd_plan(bh, s, 64)
+    # the depths below 128 share one plan
+    assert all(fa.fwd_plan(bh, s, d) == plan for d in fa.HEAD_DIMS if d < 128)
     assert (plan.heads_per_block, plan.warps_per_head, plan.keys_per_tile,
             plan.q_tiles) == (heads, warps, keys, q_tiles)
     assert plan.blocks == bh // heads * q_tiles
@@ -40,12 +42,23 @@ def test_forward_plan_fills_every_warp_with_real_rows(s, heads, warps, keys, q_t
         assert s > (plan.warps_per_head - 1) * fa.ROWS_PER_WARP
 
 
+@pytest.mark.parametrize("s", [16, 32, 256, 1024])
+def test_forward_plan_at_head_dim_128_takes_one_head_a_block(s):
+    """The D = 128 kernel (the 128-px UNet's sa2, sa3) has no several-head
+    instantiation; the other depths keep their plan."""
+    plan = fa.fwd_plan(64, s, 128)
+    assert plan.heads_per_block == 1 and plan.warps_per_head == fa.WARPS
+    assert plan.q_tiles == -(-s // (fa.WARPS * fa.ROWS_PER_WARP)) and plan.blocks == 64 * plan.q_tiles
+    assert fa.fwd_plan(64, s, 64).heads_per_block == (4 if s <= 16 else 2 if s <= 32 else 1)
+    assert 128 in fa.HEAD_DIMS and 128 not in fa.BWD_HEAD_DIMS
+
+
 def test_forward_plan_rounds_up_a_partial_group_of_heads():
-    assert fa.fwd_plan(6, 16).blocks == 2   # four heads, then two
-    assert fa.fwd_plan(3, 32).blocks == 2
-    assert fa.fwd_plan(3, 200).blocks == 3 * 4
+    assert fa.fwd_plan(6, 16, 32).blocks == 2   # four heads, then two
+    assert fa.fwd_plan(3, 32, 32).blocks == 2
+    assert fa.fwd_plan(3, 200, 32).blocks == 3 * 4
     with pytest.raises(ValueError):
-        fa.fwd_plan(0, 16)
+        fa.fwd_plan(0, 16, 32)
 
 
 @pytest.mark.parametrize("dtype,expect", [
