@@ -91,6 +91,9 @@ def _add_train(p: argparse.ArgumentParser) -> None:
                    help="linear-warmup optimizer updates (warmup_cosine only)")
     p.add_argument("--lr-min-ratio", type=float, default=0.0,
                    help="cosine floor as a fraction of peak lr")
+    p.add_argument("--lr-total-steps", type=int, default=None,
+                   help="cosine horizon in optimizer updates (default: epochs x batches "
+                        "per epoch / grad-accum; a resumed run keeps its checkpoint's)")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="micro-batches averaged per optimizer update "
                         "(effective batch = k * batch-size)")
@@ -104,7 +107,8 @@ _TRAIN_FIELDS = {
     "lr": "lr", "image_gen_n": "image_gen_per_epoch", "gen_per_batch": "gen_per_batch",
     "gen_total": "gen_total", "label_dropout": "label_dropout",
     "lr_schedule": "lr_schedule", "warmup_steps": "warmup_steps",
-    "lr_min_ratio": "lr_min_ratio", "grad_accum": "grad_accum", "grad_clip": "grad_clip",
+    "lr_min_ratio": "lr_min_ratio", "lr_total_steps": "lr_total_steps",
+    "grad_accum": "grad_accum", "grad_clip": "grad_clip",
     "checkpoint_opt_state": "checkpoint_opt_state",
 }
 

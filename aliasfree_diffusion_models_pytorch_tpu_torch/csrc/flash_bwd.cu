@@ -11,7 +11,7 @@
 //   dQ = dS·k·scale;  dK = dSᵀ·q·scale;  every product accumulates in f32 and dQ, dK, dV are
 //   cast to the input dtype once, at the end.
 //
-// What bounds it: at the UNet's head dims (D = 8..64) every (query, key) pair costs one exp and
+// What bounds it: at the UNet's head dims (D = 8..128) every (query, key) pair costs one exp and
 // 10·D flops over five small products, while q, k, v, out, g, dQ, dK, dV cross device memory
 // once (8·S·D elements per head). On the tensor cores the products are cheap, so the exp unit
 // and the per-pair f32 work (scale, exp, two roundings, dS) bound it, not memory bytes.
@@ -23,7 +23,11 @@
 //  * flash_bwd_mma_kernel, one block per (b·h, tile of 64 keys), four warps of 16 keys. A warp's
 //    K and V fragments sit in registers for the whole loop and its dK, dV accumulators in f32
 //    registers; the loop over query tiles of 64 takes the place of the TPU's sequential strip
-//    axis. Each query tile (Q, g, g/Σ, the float4 constants) is double-buffered through shared
+//    axis. At D = 128 that would be 64 registers of fragments and 128 of accumulators a thread,
+//    192 of the 255 before anything else: there the block's K and V tiles stay in shared memory
+//    and each 16-query step reads the warp's fragments back with ldmatrix (16 loads of 16 bytes
+//    a lane per step, against 32 MMAs), and dQ is formed and added in two halves of 64 columns,
+//    so the accumulators of dK and dV are the only large live set. Each query tile (Q, g, g/Σ, the float4 constants) is double-buffered through shared
 //    memory by cp.async (rows past S zero-filled), rows padded to an odd number of 16-byte units.
 //    Per 16 queries, key-major: Sᵀ = K·Qᵀ in the accumulators (m16n8k8 at D = 8, m16n8k16
 //    above); Pᵀ = 2^(Sᵀ·scale·log2e − m·log2e), one FFMA and one EX2 per pair, the only exp of
@@ -53,7 +57,9 @@
 // f32: flash_bwd_dq_kernel and flash_bwd_dkv_kernel, the CUDA-core kernels of the first port,
 // unchanged and deterministic: one thread per query row (dQ, and δ) and one per key row (dK, dV),
 // f32 arithmetic throughout, each recomputing P with __expf (two exps per pair). They are the
-// exact path the f32 checks hold against the CPU. A bf16 tensor never reaches them.
+// exact path the f32 checks hold against the CPU. A bf16 tensor never reaches them. At D = 128 a
+// thread's three rows of 128 f32 values exceed the register file and spill to local memory:
+// right and slow, off the bf16 main path.
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -261,12 +267,18 @@ constexpr int kDsStride = kQTile + 8;   // dSᵀ rows in shared memory: nine 16-
 constexpr int kPrepThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// K and V fragments from shared memory (ldmatrix per step) instead of registers: at D = 128.
+template <int D>
+__host__ __device__ constexpr bool kv_in_smem() {
+  return D == 128;
+}
+
 // Bytes of dynamic shared memory of flash_bwd_mma_kernel<D>: two buffers of the query tile's
-// constants, Q, g and g/Σ; the block's K tile; the dSᵀ tile.
+// constants, Q, g and g/Σ; the block's K tile (and V tile at D = 128); the dSᵀ tile.
 template <int D>
 constexpr int bwd_smem_bytes() {
   constexpr int kT = afdm::smem_stride<D>();
-  return 2 * kQTile * 16 + 3 * 2 * kQTile * kT * 2 + kKeyBlock * kT * 2 +
+  return 2 * kQTile * 16 + 3 * 2 * kQTile * kT * 2 + (kv_in_smem<D>() ? 2 : 1) * kKeyBlock * kT * 2 +
          kKeyBlock * kDsStride * 2;
 }
 
@@ -315,13 +327,17 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kO = D / 8;                    // n-tiles of dK, dV and dQ
   constexpr int kRowChunks = D / 8;            // 16-byte chunks per row
   constexpr int kTileElems = kQTile * kT;
+  constexpr bool kKvSmem = kv_in_smem<D>();
+  constexpr int kFragSteps = kKvSmem ? 1 : kSteps;  // register fragments (none used at D = 128)
+  constexpr int kDqCols = D < 64 ? D : 64;           // dQ columns per pass of its product
   extern __shared__ __align__(16) unsigned char smem[];
   float4* cs = reinterpret_cast<float4*>(smem);           // [2][kQTile] row constants
   bf16* qs = reinterpret_cast<bf16*>(cs + 2 * kQTile);    // [2][kQTile × kT] Q
   bf16* gs = qs + 2 * kTileElems;                         // [2][...] g
   bf16* ss = gs + 2 * kTileElems;                         // [2][...] g/Σ
   bf16* ks = ss + 2 * kTileElems;                         // [kKeyBlock × kT] the block's K
-  bf16* dst = ks + kKeyBlock * kT;                        // [kKeyBlock × kDsStride] dSᵀ
+  bf16* vs = ks + kKeyBlock * kT;                         // [kKeyBlock × kT] V (D = 128 only)
+  bf16* dst = vs + (kKvSmem ? kKeyBlock * kT : 0);        // [kKeyBlock × kDsStride] dSᵀ
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int group = lane >> 2, quad = lane & 3;
@@ -359,6 +375,7 @@ __global__ void __launch_bounds__(kThreads)
     const bool ok = r < real_keys;
     const size_t off = base + (ok ? static_cast<size_t>(key0 + r) * D + col : 0);
     afdm::cp_async_16(ks + r * kT + col, k + off, ok ? 16 : 0);
+    if constexpr (kKvSmem) afdm::cp_async_16(vs + r * kT + col, v + off, ok ? 16 : 0);
   }
   load_q_tile(0, first * kQTile);
   afdm::cp_async_commit();
@@ -370,9 +387,9 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* kpb = k + base + static_cast<size_t>(kb_ok ? kbr : 0) * D + 2 * quad;
   const bf16* vpa = v + base + static_cast<size_t>(ka_ok ? ka : 0) * D + 2 * quad;
   const bf16* vpb = v + base + static_cast<size_t>(kb_ok ? kbr : 0) * D + 2 * quad;
-  uint32_t kf[kSteps][4], vf[kSteps][4];
+  uint32_t kf[kFragSteps][4], vf[kFragSteps][4];
 #pragma unroll
-  for (int t = 0; t < kSteps; ++t) {
+  for (int t = 0; t < (kKvSmem ? 0 : kSteps); ++t) {
     kf[t][0] = ka_ok ? afdm::ld_pair(kpa + 16 * t) : 0u;
     kf[t][1] = kb_ok ? afdm::ld_pair(kpb + 16 * t) : 0u;
     vf[t][0] = ka_ok ? afdm::ld_pair(vpa + 16 * t) : 0u;
@@ -432,13 +449,20 @@ __global__ void __launch_bounds__(kThreads)
         } else {
 #pragma unroll
           for (int t = 0; t < kSteps; ++t) {
-            uint32_t b[4];
+            uint32_t ka[4], va[4], b[4];
+            if constexpr (kKvSmem) {
+              afdm::ldsm_a_mk(ka, ks, kT, 16 * warp, 16 * t, lane);
+              afdm::ldsm_a_mk(va, vs, kT, 16 * warp, 16 * t, lane);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) ka[e] = kf[t][e], va[e] = vf[t][e];
+            }
             afdm::ldsm_b_nk(b, qt_s, kT, 16 * c, 16 * t, lane);
-            afdm::mma_m16n8k16(sc[0], kf[t], b[0], b[1], sc[0]);
-            afdm::mma_m16n8k16(sc[1], kf[t], b[2], b[3], sc[1]);
+            afdm::mma_m16n8k16(sc[0], ka, b[0], b[1], sc[0]);
+            afdm::mma_m16n8k16(sc[1], ka, b[2], b[3], sc[1]);
             afdm::ldsm_b_nk(b, g_s, kT, 16 * c, 16 * t, lane);
-            afdm::mma_m16n8k16(dp[0], vf[t], b[0], b[1], dp[0]);
-            afdm::mma_m16n8k16(dp[1], vf[t], b[2], b[3], dp[1]);
+            afdm::mma_m16n8k16(dp[0], va, b[0], b[1], dp[0]);
+            afdm::mma_m16n8k16(dp[1], va, b[2], b[3], dp[1]);
           }
         }
 
@@ -501,37 +525,42 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();  // dSᵀ complete; every warp is done with this tile's buffers
 
-    // dQ of queries q0 + 16·warp .. +15 over the block's real keys, added into the scratch.
-    float dqa[kO][4];
-#pragma unroll
-    for (int n = 0; n < kO; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-    for (int kk = 0; kk < key_warps; ++kk) {
-      uint32_t a[4];
-      afdm::ldsm_a_km(a, dst, kDsStride, 16 * kk, 16 * warp, lane);
-      if constexpr (D == 8) {
-        uint32_t b[2];
-        afdm::ldsm_b_kn8(b, ks, kT, 16 * kk, 0, lane);
-        afdm::mma_m16n8k16(dqa[0], a, b[0], b[1], dqa[0]);
-      } else {
-#pragma unroll
-        for (int u = 0; u < kO / 2; ++u) {
-          uint32_t b[4];
-          afdm::ldsm_b_kn(b, ks, kT, 16 * kk, 16 * u, lane);
-          afdm::mma_m16n8k16(dqa[2 * u], a, b[0], b[1], dqa[2 * u]);
-          afdm::mma_m16n8k16(dqa[2 * u + 1], a, b[2], b[3], dqa[2 * u + 1]);
-        }
-      }
-    }
+    // dQ of queries q0 + 16·warp .. +15 over the block's real keys, added into the scratch, in
+    // passes of kDqCols columns (two at D = 128, one below).
     const int qa = q0 + 16 * warp + group, qb = qa + 8;
 #pragma unroll
-    for (int n = 0; n < kO; ++n) {
-      if (qa < s) {
-        atomicAdd(reinterpret_cast<float2*>(dq_acc + (sbase + qa) * D + 8 * n + 2 * quad),
-                  make_float2(dqa[n][0], dqa[n][1]));
+    for (int c0 = 0; c0 < D; c0 += kDqCols) {
+      float dqa[kDqCols / 8][4];
+#pragma unroll
+      for (int n = 0; n < kDqCols / 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+      for (int kk = 0; kk < key_warps; ++kk) {
+        uint32_t a[4];
+        afdm::ldsm_a_km(a, dst, kDsStride, 16 * kk, 16 * warp, lane);
+        if constexpr (D == 8) {
+          uint32_t b[2];
+          afdm::ldsm_b_kn8(b, ks, kT, 16 * kk, 0, lane);
+          afdm::mma_m16n8k16(dqa[0], a, b[0], b[1], dqa[0]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < kDqCols / 16; ++u) {
+            uint32_t b[4];
+            afdm::ldsm_b_kn(b, ks, kT, 16 * kk, c0 + 16 * u, lane);
+            afdm::mma_m16n8k16(dqa[2 * u], a, b[0], b[1], dqa[2 * u]);
+            afdm::mma_m16n8k16(dqa[2 * u + 1], a, b[2], b[3], dqa[2 * u + 1]);
+          }
+        }
       }
-      if (qb < s) {
-        atomicAdd(reinterpret_cast<float2*>(dq_acc + (sbase + qb) * D + 8 * n + 2 * quad),
-                  make_float2(dqa[n][2], dqa[n][3]));
+#pragma unroll
+      for (int n = 0; n < kDqCols / 8; ++n) {
+        const int col = c0 + 8 * n + 2 * quad;
+        if (qa < s) {
+          atomicAdd(reinterpret_cast<float2*>(dq_acc + (sbase + qa) * D + col),
+                    make_float2(dqa[n][0], dqa[n][1]));
+        }
+        if (qb < s) {
+          atomicAdd(reinterpret_cast<float2*>(dq_acc + (sbase + qb) * D + col),
+                    make_float2(dqa[n][2], dqa[n][3]));
+        }
       }
     }
     // The next iteration writes dSᵀ only after its first barrier, which every warp reaches
@@ -648,6 +677,11 @@ extern "C" int afdm_flash_bwd(const void* q, const void* k, const void* v, const
       err = is_bf16 ? launch_mma<64>(q, k, v, out, g, mf, lf, dq, dk, dv, c4, acc, gsc, bh, s,
                                      scale, st)
                     : launch_f32<64>(q, k, v, out, g, mf, lf, dq, dk, dv, cf, bh, s, scale, st);
+      break;
+    case 128:
+      err = is_bf16 ? launch_mma<128>(q, k, v, out, g, mf, lf, dq, dk, dv, c4, acc, gsc, bh, s,
+                                      scale, st)
+                    : launch_f32<128>(q, k, v, out, g, mf, lf, dq, dk, dv, cf, bh, s, scale, st);
       break;
     default:
       err = cudaErrorInvalidValue;

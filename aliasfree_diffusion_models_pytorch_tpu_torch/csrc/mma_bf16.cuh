@@ -94,6 +94,14 @@ __device__ __forceinline__ void ldsm_b_kn8(uint32_t (&b)[2], const __nv_bfloat16
   ldmatrix_x2_trans(b, x + (k0 + (lane & 15)) * stride + n0);
 }
 
+// A fragment (m × k, 16×16) of a matrix X stored row-major as [m][k] (k contiguous): rows
+// m0..m0+15, columns k0..k0+15.
+__device__ __forceinline__ void ldsm_a_mk(uint32_t (&a)[4], const __nv_bfloat16* x, int stride,
+                                          int m0, int k0, int lane) {
+  const int mi = lane >> 3, r = lane & 7;
+  ldmatrix_x4(a, x + (m0 + (mi & 1) * 8 + r) * stride + k0 + (mi >> 1) * 8);
+}
+
 // A fragment (m × k, 16×16) of a matrix X stored row-major as [k][m] (m contiguous): rows
 // k0..k0+15, columns m0..m0+15.
 __device__ __forceinline__ void ldsm_a_km(uint32_t (&a)[4], const __nv_bfloat16* x, int stride,

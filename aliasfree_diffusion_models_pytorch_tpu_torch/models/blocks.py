@@ -90,7 +90,10 @@ class GroupNorm1(nn.Module):
 
 
 class FilteredGELU(nn.Module):
-    """2x alias-free upsample → GELU → 2x alias-free downsample."""
+    """2x alias-free upsample → GELU → 2x alias-free downsample: the conv form
+    in f32, the polyphase form in bf16 (the kernel pair on the card), as
+    :func:`~aliasfree_diffusion_models_pytorch_tpu_torch.ops.resample.fg_impl`
+    picks."""
 
     def __init__(self, filters: FilterSettings):
         super().__init__()

@@ -46,13 +46,11 @@ import torch
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
 
 __all__ = ["attention_reference", "attention_backward_reference", "flash_attention_fwd",
-           "flash_attention_bwd", "flash_mha", "fwd_plan", "bwd_scratch_shapes", "HEAD_DIMS",
-           "BWD_HEAD_DIMS"]
+           "flash_attention_bwd", "flash_mha", "fwd_plan", "bwd_scratch_shapes", "HEAD_DIMS"]
 
-# The kernels' template instantiations: the forward also takes D = 128 (the
-# 128-px UNet's 512-channel blocks, which sample but do not train here).
+# The kernels' template instantiations, forward and backward alike: D = 128 is
+# the 128-px UNet's 512-channel blocks (sa2, sa3 at base width 128).
 HEAD_DIMS = (8, 16, 32, 64, 128)
-BWD_HEAD_DIMS = (8, 16, 32, 64)
 _DTYPES = (torch.float32, torch.bfloat16)
 # bf16 kernels: four warps a block, 16 rows a warp (csrc/flash_fwd.cu, csrc/flash_bwd.cu).
 WARPS = 4
@@ -190,7 +188,7 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, head_dims=HEAD_DIMS) -> None:
+def _check(q, k, v) -> None:
     if q.dim() != 4:
         raise ValueError(f"expected (B, H, S, D) tensors, got shape {tuple(q.shape)}")
     for name, t in (("k", k), ("v", v)):
@@ -201,8 +199,8 @@ def _check(q, k, v, head_dims=HEAD_DIMS) -> None:
                 f"{tuple(q.shape)} {q.dtype} {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention_fwd takes float32 or bfloat16, got {q.dtype}")
-    if q.shape[-1] not in head_dims:
-        raise ValueError(f"head dim {q.shape[-1]} not in {head_dims}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
     if q.shape[0] * q.shape[1] < 1 or q.shape[2] < 1:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -254,7 +252,7 @@ flash_attention_fwd.launches = 0
 
 
 def _check_bwd(q, k, v, out, m, ssum, g) -> None:
-    _check(q, k, v, BWD_HEAD_DIMS)
+    _check(q, k, v)
     for name, t in (("out", out), ("g", g)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(

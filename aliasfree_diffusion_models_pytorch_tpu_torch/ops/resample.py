@@ -1,4 +1,4 @@
-"""Alias-free resampling ops (plain PyTorch).
+"""Alias-free resampling ops, and the filtered GELU's CUDA kernel pair.
 
 Port of ``aliasfree_diffusion_models_pytorch_tpu/ops/resample.py``. Layout is
 NCHW here (PyTorch's convolution layout); the JAX package's functions take
@@ -10,6 +10,16 @@ counterpart:
 * ``upsample2x``: zero-stuffing by ``factor`` then a SAME depthwise FIR. The
   JAX version folds the stuffing into ``lhs_dilation``; here the stuffed
   tensor is built with its padding in place and convolved unpadded.
+* ``filtered_gelu``: up → GELU → down in one of two forms, chosen as the JAX
+  package's ``_fg_auto_impl`` chooses (JAX ``:205-250``): the conv form
+  (the three ops above around ``gelu_exact``) for f32, the polyphase form
+  (``filtered_gelu_phases``, index plan ``phase_terms``) for bf16, the port's
+  counterpart of the JAX bf16 path's ``precision=None``. ``AFDM_FG_IMPL=conv``
+  or ``phases`` overrides, as in the JAX package. On the CPU the phases form
+  is the plain version; on the card it is the hand-written kernel pair of
+  ``csrc/filtered_gelu.cu`` (``filtered_gelu_fwd``, ``filtered_gelu_bwd``,
+  tied by a ``torch.autograd.Function``), which keeps every intermediate on
+  chip and saves only x for the backward.
 
 Parity trap preserved: the reference's ``custom_upsample`` does **not**
 apply the ``factor**2`` gain compensation of StyleGAN3, so ``gain`` defaults
@@ -21,11 +31,16 @@ hold them as buffers already on the right device and dtype.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import functools
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
 
 __all__ = [
     "same_pad",
@@ -33,7 +48,14 @@ __all__ = [
     "downsample2x",
     "upsample2x",
     "filtered_gelu",
+    "fg_impl",
     "gelu_exact",
+    "phase_terms",
+    "filtered_gelu_phases",
+    "filtered_gelu_fwd",
+    "filtered_gelu_bwd",
+    "fg_plan",
+    "FG_KERNEL_SIZES",
     "maxpool2x",
     "upsample_bilinear_align_corners",
     "resize_matrix_1d",
@@ -113,11 +135,239 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return (xf * (0.5 + xc * p)).to(x.dtype)
 
 
+def fg_impl(x: torch.Tensor, k: int, factor: int = 2) -> str:
+    """The form :func:`filtered_gelu` takes: ``"phases"`` for a bf16 input
+    (the JAX bf16 path's ``precision=None``), ``"conv"`` otherwise, so f32
+    keeps the conv form its parity tests were built on; ``AFDM_FG_IMPL``
+    (``conv`` | ``phases``) overrides. The phases form needs factor 2, an odd
+    k and a 4-D input, as in the JAX package (JAX ``:213-248``)."""
+    env = os.environ.get("AFDM_FG_IMPL")
+    impl = env if env in ("conv", "phases") else (
+        "phases" if x.dtype == torch.bfloat16 else "conv")
+    if impl == "phases" and factor == 2 and k % 2 == 1 and x.dim() == 4:
+        return "phases"
+    return "conv"
+
+
 def filtered_gelu(x: torch.Tensor, up_taps, down_taps, factor: int = 2) -> torch.Tensor:
-    """Filtered nonlinearity (NCHW): 2x alias-free up → GELU → 2x down."""
+    """Filtered nonlinearity (NCHW): 2x alias-free up → GELU → 2x down, in
+    the form :func:`fg_impl` picks. The phases form is
+    :func:`filtered_gelu_phases` on a CPU tensor and the kernel pair on a
+    CUDA tensor (which raises on what the kernels cannot take)."""
+    if fg_impl(x, int(up_taps.shape[0]), factor) == "phases":
+        if x.device.type == "cpu":
+            return filtered_gelu_phases(x, up_taps, down_taps)
+        up, down = (_taps(t, x).contiguous() for t in (up_taps, down_taps))
+        return _FilteredGelu.apply(x.contiguous(), up, down)
     x = upsample2x(x, up_taps, factor)
     x = gelu_exact(x)
     return downsample2x(x, down_taps, factor)
+
+
+def phase_terms(k: int):
+    """Static polyphase index plans for factor-2 up and down FIR convs (odd k),
+    copied from the JAX package (JAX ``:253-294``).
+
+    ``up[(a, b)]`` lists ``(dy, dx, row_shift, col_shift)`` terms building the
+    output-parity-(a, b) plane of the zero-stuffed upsample conv directly from
+    the low-res grid; ``down`` lists ``(dy, dx, phase_a, phase_b, row_shift,
+    col_shift)`` mapping each decimating-conv tap onto a constant-offset read
+    of a phase plane. With p = k//2, cross-correlation and zero 'same'
+    padding:
+
+      up-phase  y[2i+a, 2j+b] = Σ_{dy≡p-a (2), dx≡p-b (2)} h[dy,dx] ·
+                                  x[i+(a+dy-p)/2, j+(b+dx-p)/2]
+      down      z[i, j]       = Σ_{dy,dx} g[dy,dx] · y_phase(a',b')[i+r, j+s]
+                with a'=(dy-p) mod 2, r=(dy-p-a')/2 (same for columns).
+    """
+    p = k // 2
+    up = {}
+    for a in (0, 1):
+        for b in (0, 1):
+            terms = []
+            for dy in range(k):
+                if (a + dy - p) % 2:
+                    continue
+                for dx in range(k):
+                    if (b + dx - p) % 2:
+                        continue
+                    terms.append((dy, dx, (a + dy - p) // 2, (b + dx - p) // 2))
+            up[(a, b)] = terms
+    down = []
+    for dy in range(k):
+        a = (dy - p) % 2
+        r = (dy - p - a) // 2
+        for dx in range(k):
+            b = (dx - p) % 2
+            s = (dx - p - b) // 2
+            down.append((dy, dx, a, b, r, s))
+    return up, down
+
+
+def filtered_gelu_phases(x: torch.Tensor, up_taps, down_taps) -> torch.Tensor:
+    """Polyphase form of :func:`filtered_gelu` (factor 2, odd k, NCHW): the
+    JAX package's ``filtered_gelu_phases`` (JAX ``:345-393``), and the plain
+    version of the kernel pair.
+
+    The zero-stuffed upsample is evaluated per output-parity phase on the
+    original grid (its zero samples never exist), GELU is applied per phase,
+    and the decimating down conv reads the phases back at constant offsets.
+    Rounding points, those of the conv form: the taps in the input's dtype;
+    each phase summed in f32 and rounded to the input dtype (the upsample's
+    output); :func:`gelu_exact` (the polynomial on bf16); the down sum in f32,
+    rounded once. In f32 nothing rounds between the steps.
+    """
+    tu, td = (_taps(t, x).float() for t in (up_taps, down_taps))
+    k = tu.shape[0]
+    n, c, h, w = x.shape
+    m = k // 2 + 1  # covers every |shift| in both plans
+    up_plan, down_plan = phase_terms(k)
+    xp = F.pad(x.float(), (m, m, m, m))
+
+    def sh(a4, r, s):
+        return a4[:, :, m + r:m + r + h, m + s:m + s + w]
+
+    gp = {}
+    for (a, b), terms in up_plan.items():
+        acc = x.new_zeros((n, c, h, w), dtype=torch.float32)
+        for dy, dx, r, s in terms:
+            acc = acc + tu[dy, dx] * sh(xp, r, s)
+        gp[(a, b)] = F.pad(gelu_exact(acc.to(x.dtype)).float(), (m, m, m, m))
+    out = x.new_zeros((n, c, h, w), dtype=torch.float32)
+    for dy, dx, a, b, r, s in down_plan:
+        out = out + td[dy, dx] * sh(gp[(a, b)], r, s)
+    return out.to(x.dtype)
+
+
+# The kernel pair's instantiations (csrc/filtered_gelu.cu): odd k up to 7, f32
+# and bf16, 256 threads a block.
+FG_KERNEL_SIZES = (1, 3, 5, 7)
+FG_THREADS = 256
+FG_TILE_ELEMS = 512  # outputs a block takes: two a thread
+
+
+@dataclasses.dataclass(frozen=True)
+class FgPlan:
+    """Launch plan of the filtered-GELU kernels on (planes, h, w) arrays."""
+
+    tile_h: int
+    tile_w: int
+    planes_per_block: int
+    blocks: int
+
+
+def fg_plan(planes: int, h: int, w: int, k: int) -> FgPlan:
+    """A block takes a tile of 32 columns × 16 rows of one plane, or, where a
+    plane is smaller than that, whole planes: as many as make up 512 outputs,
+    fewer where their halos would exceed about 96 KB of shared memory in the
+    backward (six f32 arrays of (h + k) × (w + k) a plane at most)."""
+    if planes < 1 or h < 1 or w < 1:
+        raise ValueError(f"empty filtered-GELU input: planes={planes}, h={h}, w={w}")
+    tw = min(w, 32)
+    th = min(h, max(1, FG_TILE_ELEMS // tw))
+    pb = 1
+    if (th, tw) == (h, w):
+        pb = max(1, min(FG_TILE_ELEMS // (h * w), 4096 // ((h + k) * (w + k))))
+    blocks = -(-planes // pb) * -(-h // th) * -(-w // tw)
+    return FgPlan(tile_h=th, tile_w=tw, planes_per_block=pb, blocks=blocks)
+
+
+@functools.cache
+def _fg_lib() -> ctypes.CDLL:
+    lib = kernels.load("filtered_gelu")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.afdm_filtered_gelu.argtypes = [vp] * 5 + [ci] * 8 + [vp]
+    lib.afdm_filtered_gelu.restype = ci
+    lib.afdm_cuda_error_string.argtypes = [ci]
+    lib.afdm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _fg_launch(x, g, up, down) -> torch.Tensor:
+    """Checks and launches one kernel of the pair: the forward without ``g``,
+    the backward with it. Returns the new (n, c, h, w) tensor."""
+    if x.dim() != 4:
+        raise ValueError(f"expected an (N, C, H, W) tensor, got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the filtered-GELU kernels take float32 or bfloat16, got {x.dtype}")
+    k = up.shape[0]
+    if k not in FG_KERNEL_SIZES or up.shape != (k, k) or down.shape != (k, k):
+        raise ValueError(f"taps must be k × k with k in {FG_KERNEL_SIZES}, got "
+                         f"{tuple(up.shape)} and {tuple(down.shape)}")
+    for name, t in (("x", x), ("g", g), ("up_taps", up), ("down_taps", down)):
+        if t is None:
+            continue
+        if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {x.dtype} tensor on {x.device}, "
+                             f"got {t.dtype} on {t.device}")
+    if g is not None and g.shape != x.shape:
+        raise ValueError(f"g must match x: {tuple(g.shape)} vs {tuple(x.shape)}")
+    n, c, h, w = x.shape
+    plan = fg_plan(n * c, h, w, k)
+    y = torch.empty_like(x)
+    lib = _fg_lib()
+    with torch.cuda.device(x.device):
+        err = lib.afdm_filtered_gelu(
+            x.data_ptr(), None if g is None else g.data_ptr(), up.data_ptr(), down.data_ptr(),
+            y.data_ptr(), n * c, h, w, k, plan.tile_h, plan.tile_w, plan.planes_per_block,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"filtered_gelu launch failed: "
+                           f"{lib.afdm_cuda_error_string(err).decode()}")
+    return y
+
+
+def _check_device(x: torch.Tensor, fn: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn} runs on cpu or cuda, got {x.device}")
+
+
+def filtered_gelu_fwd(x: torch.Tensor, up_taps, down_taps) -> torch.Tensor:
+    """The filtered GELU's forward kernel on an (N, C, H, W) CUDA tensor (f32
+    or bf16; taps k × k in x's dtype and device, k odd up to 7); a CPU tensor
+    takes :func:`filtered_gelu_phases`. ``launches`` counts the calls that
+    reached the card."""
+    if x.device.type == "cpu":
+        return filtered_gelu_phases(x, up_taps, down_taps)
+    _check_device(x, "filtered_gelu_fwd")
+    y = _fg_launch(x, None, up_taps, down_taps)
+    filtered_gelu_fwd.launches += 1
+    return y
+
+
+filtered_gelu_fwd.launches = 0
+
+
+def filtered_gelu_bwd(x: torch.Tensor, up_taps, down_taps, g: torch.Tensor) -> torch.Tensor:
+    """dx of the filtered GELU for the cotangent ``g``: the backward kernel on
+    a CUDA tensor, which recomputes the phases from x; on a CPU tensor autograd
+    of :func:`filtered_gelu_phases`. ``launches`` counts the calls that
+    reached the card."""
+    if x.device.type == "cpu":
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_()
+            return torch.autograd.grad(filtered_gelu_phases(xg, up_taps, down_taps), xg, g)[0]
+    _check_device(x, "filtered_gelu_bwd")
+    dx = _fg_launch(x, g, up_taps, down_taps)
+    filtered_gelu_bwd.launches += 1
+    return dx
+
+
+filtered_gelu_bwd.launches = 0
+
+
+class _FilteredGelu(torch.autograd.Function):
+    """Forward saves x and the taps; backward is the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, up, down):
+        ctx.save_for_backward(x, up, down)
+        return filtered_gelu_fwd(x, up, down)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, up, down = ctx.saved_tensors
+        return filtered_gelu_bwd(x, up, down, g.contiguous()), None, None
 
 
 def maxpool2x(x: torch.Tensor) -> torch.Tensor:

@@ -52,7 +52,7 @@ from aliasfree_diffusion_models_pytorch_tpu_torch.ops.resample import (
     upsample_bilinear_align_corners,
 )
 from aliasfree_diffusion_models_pytorch_tpu_torch.train import (
-    recover_base_width,
+    recover_stored_config,
     step_generator,
     train,
 )
@@ -80,7 +80,7 @@ def _load_model_params(config: TrainConfig, root: str, device="cuda") -> UNet:
     writes beside the checkpoint: the weights fix the width, so the stored
     value wins over the one passed in.
     """
-    config = recover_base_width(config, root)
+    config = recover_stored_config(config, root)
     state = load_jax_npz(config.checkpoint_path(root), ema=config.use_ema)
     return build_model(config, device=device, state_dict=state)
 

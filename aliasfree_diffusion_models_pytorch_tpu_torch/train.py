@@ -29,9 +29,12 @@ directly, which the tests use to hand in another framework's draws.
 
 Resume. ``train(resume=True)`` restores the parameters, the EMA and the step
 count, and with ``config.checkpoint_opt_state`` AdamW's moments, the update
-count and the open accumulation window (``utils/checkpoint.py``); the
-dataloader goes on at the epoch the checkpoint stopped in. So N epochs and
-N = k + (N − k) with a resume between take the same steps on the same data.
+count and the open accumulation window (``utils/checkpoint.py``); it adopts
+the stored cosine horizon (:func:`recover_stored_config`), and its epochs are
+numbered on from the epoch the checkpoint stopped in, where the dataloader
+goes on too. So N epochs and N = k + (N − k) with a resume between take the
+same steps on the same data at the same learning rates, and the resumed run's
+sample grids do not write over the first run's.
 """
 
 from __future__ import annotations
@@ -88,12 +91,18 @@ def make_optimizer(config: TrainConfig, params) -> torch.optim.AdamW:
                              weight_decay=1e-2)
 
 
-def recover_base_width(config: TrainConfig, root: str = ".") -> TrainConfig:
-    """Adopt the ``base_width`` stored beside an existing checkpoint.
+def recover_stored_config(config: TrainConfig, root: str = ".") -> TrainConfig:
+    """Adopt the ``base_width`` and ``lr_total_steps`` stored beside an
+    existing checkpoint (the JAX package's ``recover_base_width`` adopts the
+    width alone).
 
-    ``train()`` writes the full config to ``models/<run>/config.json``; the
-    checkpoint's weights fix the width, so on restore the stored value wins
-    over the one passed in.
+    ``train()`` writes the full config to ``models/<run>/config.json``. The
+    checkpoint's weights fix the width, and the run that wrote it fixed the
+    cosine horizon (derived from that run's own ``epochs`` unless given), so
+    on restore the stored values win over the ones passed in: a resumed run
+    goes on along the schedule it started on. The JAX package re-derives the
+    horizon from the resumed call's ``epochs`` (JAX ``train.py:388-398``); the
+    port keeps the stored one.
     """
     cfg_path = os.path.join(config.model_dir(root), "config.json")
     if not os.path.exists(cfg_path):
@@ -103,14 +112,14 @@ def recover_base_width(config: TrainConfig, root: str = ".") -> TrainConfig:
             stored = json.load(f)
     except (OSError, ValueError):
         return config
-    if "base_width" not in stored:
-        return config
-    width = stored["base_width"]
-    width = None if width is None else int(width)
-    if width != config.base_width:
-        logger.info("restoring with base_width=%s from %s (overrides %s)",
-                    width, cfg_path, config.base_width)
-        config = dataclasses.replace(config, base_width=width)
+    for field in ("base_width", "lr_total_steps"):
+        if field not in stored or (field == "lr_total_steps" and stored[field] is None):
+            continue
+        value = None if stored[field] is None else int(stored[field])
+        if value != getattr(config, field):
+            logger.info("restoring with %s=%s from %s (overrides %s)",
+                        field, value, cfg_path, getattr(config, field))
+            config = dataclasses.replace(config, **{field: value})
     return config
 
 
@@ -308,7 +317,7 @@ def train(
 
     device = torch.device(device)
     if resume:
-        config = recover_base_width(config, root)
+        config = recover_stored_config(config, root)
     if config.lr_schedule != "constant" and config.lr_total_steps is None:
         # Cosine horizon in optimizer updates: every epoch walks the whole
         # dataloader, and one update happens per grad_accum batches.
@@ -320,6 +329,7 @@ def train(
         logger.info("lr_total_steps derived: %d updates", config.lr_total_steps)
     model, state = create_train_state(config, device=device)
     ckpt_path = config.checkpoint_path(root)
+    first_epoch = 0
     if resume and os.path.exists(ckpt_path + ".npz"):
         restored = ckpt_lib.restore_checkpoint(ckpt_path)
         state.load(restored["params"], restored["ema_params"], restored["step"])
@@ -328,10 +338,15 @@ def train(
                 raise KeyError(f"checkpoint {ckpt_path}.npz holds no optimizer state "
                                "(was it saved without checkpoint_opt_state?)")
             ckpt_lib.load_opt_state(config, state, restored["opt_state"])
+        # Epochs are numbered on from the epoch the checkpoint stopped in: the
+        # data order, the logged epoch, the sample grid's file name and its
+        # noise index (the JAX trainer starts again at 0 and writes over the
+        # first run's grids).
+        first_epoch = state.step // max(1, len(dataloader))
         if isinstance(dataloader, Dataloader):
-            # The data order goes on at the epoch the checkpoint stopped in.
-            dataloader.epoch = state.step // max(1, len(dataloader))
-        logger.info("resumed from %s at step %d", ckpt_path, state.step)
+            dataloader.epoch = first_epoch
+        logger.info("resumed from %s at step %d (epoch %d)", ckpt_path, state.step,
+                    first_epoch)
     logger.info("model variant=%d params=%s", config.variant, f"{param_count(model):,}")
     diffusion = Diffusion(
         noise_steps=config.noise_steps,
@@ -367,12 +382,13 @@ def train(
             "variant": config.variant,
             "epochs": config.epochs,
             "resumed_step": state.step,
+            "first_epoch": first_epoch,
             "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
                        else str(device)),
             # host-side CSV parsing and batch gather: the C++ binding or numpy
             "native_loader": native_status(),
         }) + "\n")
-        for epoch in range(config.epochs):
+        for epoch in range(first_epoch, first_epoch + config.epochs):
             logger.info("Starting epoch %d:", epoch)
             # Losses stay on the device until the epoch ends: a per-step
             # .item() would make the host wait for every step.

@@ -4,7 +4,8 @@ Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, loaded with ``ctypes``. Libraries
 go to ``build/torch_kernels/`` at the root of the checkout, named by a hash of
 the source, of every shared header in ``csrc/`` (``*.cuh``) and of the flags,
-so an edited source or header is rebuilt and an unchanged one is reused. Nothing is built at import: the first launch builds its kernel,
+so an edited source or header is rebuilt and an unchanged one is reused.
+Nothing is built at import: the first launch builds its kernel,
 and :func:`build` builds several at once (one ``nvcc`` process per source,
 all started together).
 """
@@ -25,7 +26,8 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
 # kernel name -> source file in csrc/
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
-           "exp_chain": "exp_chain.cu", "qk_rowsum": "qk_rowsum.cu"}
+           "exp_chain": "exp_chain.cu", "qk_rowsum": "qk_rowsum.cu",
+           "filtered_gelu": "filtered_gelu.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

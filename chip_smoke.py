@@ -6,8 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. names the card (``nvidia-smi`` name and power limit, torch's device name);
 2. builds every hand-written kernel from ``csrc/`` with nvcc (sm_90a), all
    sources at once (``flash_fwd``, ``flash_bwd``, ``exp_chain``,
-   ``qk_rowsum``), and prints the build seconds and each kernel's registers
-   and spill bytes from ptxas; the bf16 attention kernels must spill nothing;
+   ``qk_rowsum``, ``filtered_gelu``), and prints the build seconds and each
+   kernel's registers and spill bytes from ptxas; the bf16 attention kernels
+   (D = 128 included) and the filtered-GELU pair must spill nothing;
 3. holds each kernel against its plain PyTorch version on the card, in bf16
    (the tensor-core kernels) and f32 (the CUDA-core kernels), with and
    without softmax stats, and times kernel, plain version and the one-call
@@ -21,31 +22,45 @@ Run from the root of a checkout:  python3 chip_smoke.py
    128, bf16, and f32 where D = 128);
    the backward at every shape of the training path (the same six blocks at
    batch 256, the six blocks of the 64-px step at batch 32, S up to 4096, and
-   S=16384 of a 128-px step at batch 2), with the stats-mode forward that
-   feeds it checked at the same shapes; then the two probe kernels:
+   the six of the 128-px step at base width 128 and batch 4: S up to 16384, D
+   128 at sa2 and sa3, f32 too where D = 128 and at S=16384), with the
+   stats-mode forward that feeds it checked at the same shapes; then the two
+   probe kernels:
    ``exp_chain`` at the probe's full (64, 1024, 1024) array for every op
    (chain 16, and a single application), with each op's bound, its cost per
    application off the slope against ``copy`` and the ``fastexp2`` accuracy
    line; ``qk_rowsum`` at the probe's three shapes, with the ``bmm`` + ``sum``
-   yardstick, the two ratios and the verdict;
+   yardstick, the two ratios and the verdict; then the filtered-GELU pair
+   (``csrc/filtered_gelu.cu``) at every distinct filtered-GELU shape of the
+   bf16 train steps at 32 px (batch 256), 64 px (batch 32) and the two 128-px
+   regimes, bf16 and f32, forward and backward, against its plain version and
+   the conv form, bf16 timed beside its bound, the plain version and the conv
+   form, and summed per step;
 4. runs the full-width Config-D UNet forward (n=16) in f32 on the card
    against the same weights on the CPU (TF32 off), and in bf16, counting 6
-   kernel launches per forward; DDIM-5 on the card against the CPU with the
+   attention launches per forward and the filtered-GELU launches (the conv
+   form's depthwise convs must be gone: 6 resampling convs left, against 6 +
+   2 per filtered GELU with ``AFDM_FG_IMPL=conv``); DDIM-5 on the card against the CPU with the
    same injected noise; then one f32 train step on the card against the CPU
    (same weights, batch, t and noise): loss and every parameter's gradient,
    6 forward and 6 backward launches;
 5. drives the sampling path through the CLI's ``sample`` entry point:
-   1000-step DDPM at n=16 in bf16 (5994 launches), DDIM-50, DDIM-50 with θ=90
-   (Config E) and a conditional DDIM-20 with CFG 3.0;
+   1000-step DDPM at n=16 in bf16 (5994 launches, and the filtered GELU's per
+   forward times 999), DDIM-50, DDIM-50 with θ=90 (Config E) and a
+   conditional DDIM-20 with CFG 3.0;
 6. drives the training path through the CLI's ``train`` entry point: Config D
    at batch 256 in bf16 on the synthetic dataset, 10 steps (60 forward and 60
    backward launches, falling loss, a checkpoint), ``sample`` from that
-   checkpoint, and a short run with EMA, accumulation, clipping and the
-   warmup-cosine schedule — every launch counter set to 0 just before each
-   run and read just after;
+   checkpoint, a short run with EMA, accumulation, clipping and the
+   warmup-cosine schedule, and the two 128-px regimes of
+   ``benchmarks/train128.py`` (base width 128 at batch 4, base width 32 at
+   batch 8) on a seeded tree of 16 PNGs — every launch counter (attention and
+   filtered GELU) set to 0 just before each run and read just after;
 7. times the steady-state train step (batch 256 at 32 px, then batch 32 at
-   64 px, which sends S=4096 through the backward): ms per step, images per
-   second, kernels per step and device busy share from torch.profiler, peak
+   64 px, which sends S=4096 through the backward, each with the filtered
+   GELU's kernel pair and with ``AFDM_FG_IMPL=conv``; then the two 128-px
+   regimes): ms per step, images per second, kernels per step and device busy
+   share from torch.profiler, attention and filtered-GELU ms per step, peak
    memory;
 8. drives the study path through the CLI in a scratch ``--root``: ``probe
    exp`` and ``probe headpack``; ``run`` (the whole ``ddpm_run`` pipeline at
@@ -134,14 +149,16 @@ BWD_KERNELS = {torch.bfloat16: 3, torch.float32: 2}
 # The 64-px train step (image 64, base width 64, batch 32): (block, S, C).
 ATTN_SHAPES_64 = [("sa1", 1024, 128), ("sa2", 256, 256), ("sa3", 64, 256),
                   ("sa4", 256, 128), ("sa5", 1024, 64), ("sa6", 4096, 64)]
-# The longest sequence the JAX package trains (image 128, base width 128):
-# checked against the plain version at batch 2; no train step runs it here.
-ATTN_SHAPES_128 = [("sa6", 16384, 128)]
-# The 128-px sampler (image 128, base width 128, n=4, phase 8): (block, S, C);
-# sa2 and sa3 have 512 channels, a head depth of 128.
-ATTN_SAMPLE_SHAPES_128 = [("sa1", 4096, 256), ("sa2", 1024, 512), ("sa3", 256, 512),
-                          ("sa4", 1024, 256), ("sa5", 4096, 128), ("sa6", 16384, 128)]
-SAMPLE_N_128 = 4
+# The UNet at image 128, base width 128: (block, S, C). The 128-px sampler
+# (n=4, phase 8) and the reference-quirk-w128 train step of
+# benchmarks/train128.py (batch 4) run these; sa2 and sa3 have 512 channels,
+# a head depth of 128, and sa6 is the longest sequence the JAX package trains.
+ATTN_SHAPES_128 = [("sa1", 4096, 256), ("sa2", 1024, 512), ("sa3", 256, 512),
+                   ("sa4", 1024, 256), ("sa5", 4096, 128), ("sa6", 16384, 128)]
+N_128 = 4
+# The two 128-px regimes of benchmarks/train128.py: (name, base width, batch),
+# variant 3, bf16.
+TRAIN_128 = [("reference-quirk-w128", 128, 4), ("capacity-fixed-w32", 32, 8)]
 # The plain backward holds about six S×S f32 arrays per (batch, head): it is
 # compared, and timed, at the largest batch that keeps one of them under this.
 PLAIN_SS_BYTES = 5 * 2**30
@@ -218,10 +235,11 @@ def kernel_label(mangled: str) -> str:
             n = int(digits[i:])
             name = mangled[m.end():m.end() + n]
             if len(name) == n and name.endswith("_kernel"):
-                t = re.match(r"I((?:L[a-z]\d+E|f)+)E", mangled[m.end() + n:])
+                t = re.match(r"I((?:L[a-z]\d+E|f|13__nv_bfloat16)+)E", mangled[m.end() + n:])
                 if t is None:
                     return name
-                args = ["float" if a == "" else a for a in re.findall(r"L[a-z](\d+)E|f", t.group(1))]
+                args = [a.group(1) or ("float" if a.group() == "f" else "bf16")
+                        for a in re.finditer(r"L[a-z](\d+)E|f|13__nv_bfloat16", t.group(1))]
                 return f"{name}<{', '.join(args)}>"
     return mangled[:60]
 
@@ -383,8 +401,8 @@ def phase_kernels(fa) -> dict:
                     f" sdpa {row['library_call_ms'] * 1e3:6.1f}")
     # The 128-px sampler's shapes: bf16 at every block, f32 too where D = 128.
     # The plain version runs at the batch of PLAIN_SS_BYTES (`plain_bh`).
-    n = SAMPLE_N_128
-    for block, s, c in ATTN_SAMPLE_SHAPES_128:
+    n = N_128
+    for block, s, c in ATTN_SHAPES_128:
         d = c // HEADS
         scale = 1.0 / math.sqrt(d)
         n_plain = max(1, min(n, PLAIN_SS_BYTES // (HEADS * s * s * 4)))
@@ -448,13 +466,15 @@ def phase_bwd_kernel(fa) -> dict:
     max_rel = dict(max_err)
     rows = []
     for px, n, shapes in ((32, 256, ATTN_SHAPES), (64, 32, ATTN_SHAPES_64),
-                          (128, 2, ATTN_SHAPES_128)):
+                          (128, N_128, ATTN_SHAPES_128)):
         for block, s, c in shapes:
             d = c // HEADS
             scale = 1.0 / math.sqrt(d)
             # batch of the comparison with the plain version (see PLAIN_SS_BYTES)
             n_plain = max(1, min(n, PLAIN_SS_BYTES // (HEADS * s * s * 4)))
-            for dtype in (torch.bfloat16, torch.float32):
+            # at 128 px the f32 CUDA-core kernels run where D = 128 and at S=16384
+            f32 = px < 128 or d == 128 or block == "sa6"
+            for dtype in (torch.bfloat16, torch.float32) if f32 else (torch.bfloat16,):
                 q, k, v, g = (torch.randn((n, HEADS, s, d), generator=gen, device="cuda")
                               .to(dtype) for _ in range(4))
                 out, m, ssum = fa.flash_attention_fwd(q, k, v, scale, with_stats=True)
@@ -517,6 +537,165 @@ def phase_bwd_kernel(fa) -> dict:
                 del sdpa_out, qg, kg, vg, q, k, v, g, out, m, ssum, small, stats
             torch.cuda.empty_cache()
     return dict(rows=rows, max_err=max_err, max_rel=max_rel)
+
+
+# The filtered GELU (csrc/filtered_gelu.cu) at every distinct shape of the
+# bf16 train steps: (image, base width, batch) of the 32-px and 64-px steps
+# and the two 128-px regimes.
+FG_STEPS = [(32, 32, 256), (64, 64, 32), (128, 128, N_128), (128, 32, 8)]
+# Kernel vs plain version, max |difference| as a share of the largest entry:
+# the forward repeats the plain version's rounded f32 products and sums in its
+# order, so one bf16 ulp (2^-8) in bf16 and 1e-6 in f32 (erff against torch's
+# erf, the GELU's f32 rounding); the backward sums in an order of its own and
+# rounds dG and dP to bf16 from values a few f32 ulps apart: two bf16 ulps
+# (2^-6), and 2e-5 in f32. Against the conv form (cuDNN's depthwise convs in
+# another summation order, the same rounding points): 2^-6 in bf16, 1e-5 in f32.
+FG_REL_TOL = {torch.bfloat16: (2.0**-8, 2.0**-6), torch.float32: (1e-6, 2e-5)}
+FG_CONV_REL_TOL = {torch.bfloat16: 2.0**-6, torch.float32: 1e-5}
+# f32 instructions per output of the least work (k = 3 taps a side): the
+# forward forms four phases from k² products, four GELU polynomials (clamp,
+# square, seven Horner FMAs, two more: about 12 each) and the k² down taps:
+# 2k² + 48; the backward adds the k² taps of dG and the polynomial's
+# derivative (about 4 more a phase): 3k² + 64.
+def fg_ops(k: int, backward: bool) -> int:
+    return 3 * k * k + 64 if backward else 2 * k * k + 48
+
+
+def fg_step_shapes(unet_mod, blocks, config, px: int, width: int, batch: int) -> dict:
+    """{(n, c, h, w): calls} of the filtered GELU in one forward of the bf16
+    Config-D UNet at this image size, base width and batch (a spy on the
+    blocks' ``filtered_gelu``; the backward calls the same shapes)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(config, image_size=px, base_width=width, batch_size=batch)
+    model = unet_mod.build_model(cfg, device="cuda")
+    shapes: dict = {}
+    real = blocks.filtered_gelu
+
+    def spy(x, *a, **k):
+        shapes[tuple(x.shape)] = shapes.get(tuple(x.shape), 0) + 1
+        return real(x, *a, **k)
+
+    blocks.filtered_gelu = spy
+    try:
+        with torch.no_grad():
+            model(torch.zeros((batch, px, px, 3), device="cuda"),
+                  torch.ones((batch,), dtype=torch.long, device="cuda"))
+    finally:
+        blocks.filtered_gelu = real
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def fg_times(numel: int, k: int, backward: bool) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one bf16 call: x (and g) read once and the
+    result written once; fg_ops f32 instructions an output."""
+    nbytes = (3 if backward else 2) * numel * 2
+    ops = numel * fg_ops(k, backward)
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FMA_PER_S
+
+
+def phase_fg_kernel(rs, unet_mod, blocks, config) -> dict:
+    """The filtered-GELU kernel pair against its plain version (bf16 and f32,
+    forward and backward) and against the conv form, at every distinct
+    filtered-GELU shape of the 32-, 64- and 128-px train steps; bf16 timed
+    with its bound, the plain version and the conv form."""
+    k = config.filters.kernel_size
+    up, down = (torch.from_numpy(t).cuda() for t in blocks.design_taps(config.filters))
+    steps, distinct = {}, {}
+    for px, width, batch in FG_STEPS:
+        shapes = fg_step_shapes(unet_mod, blocks, config, px, width, batch)
+        steps[f"{px}px_w{width}_b{batch}"] = [dict(shape=list(sh), calls=n)
+                                             for sh, n in shapes.items()]
+        for sh in shapes:
+            distinct.setdefault(sh, f"{px}px_w{width}_b{batch}")
+        log(f"  {px}px base width {width} batch {batch}: {sum(shapes.values())} filtered-GELU "
+            f"calls a forward at {len(shapes)} shapes")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, max_err = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
+    max_rel = dict(max_err)
+
+    def conv_form(x, u, d):
+        return rs.downsample2x(rs.gelu_exact(rs.upsample2x(x, u)), d)
+
+    for shape, first in distinct.items():
+        numel = math.prod(shape)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (2 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            u, d = up.to(dtype), down.to(dtype)
+            y, dx = rs.filtered_gelu_fwd(x, u, d), rs.filtered_gelu_bwd(x, u, d, g)
+            xg = x.clone().requires_grad_()
+            ref = rs.filtered_gelu_phases(xg, u, d)
+            (ref_dx,) = torch.autograd.grad(ref, xg, g, retain_graph=True)
+            xc = x.clone().requires_grad_()
+            conv = conv_form(xc, u, d)
+            (conv_dx,) = torch.autograd.grad(conv, xc, g, retain_graph=True)
+            torch.cuda.synchronize()
+            tag = f"{tuple(shape)} {str(dtype)[6:]}"
+            fwd_tol, bwd_tol = FG_REL_TOL[dtype]
+            errs = {}
+            for name, a, r, tol in (("fwd", y, ref, fwd_tol), ("bwd", dx, ref_dx, bwd_tol),
+                                    ("fwd_conv", y, conv, FG_CONV_REL_TOL[dtype]),
+                                    ("bwd_conv", dx, conv_dx, FG_CONV_REL_TOL[dtype])):
+                err, rel = errors(a, r)
+                check(a.dtype == dtype and a.shape == r.shape and bool(torch.isfinite(a).all()),
+                      f"filtered_gelu {tag} {name}: dtype, shape or finite")
+                check(rel <= tol, f"filtered_gelu {tag} {name}: err {err} is {rel} of max > {tol}")
+                errs[name] = (err, rel)
+            max_err[dtype] = max(max_err[dtype], errs["fwd"][0], errs["bwd"][0])
+            max_rel[dtype] = max(max_rel[dtype], errs["fwd"][1], errs["bwd"][1])
+            row = dict(shape=list(shape), first_step=first, dtype=str(dtype)[6:],
+                       **{f"err_{n}": e for n, (e, _) in errs.items()},
+                       **{f"rel_{n}": r for n, (_, r) in errs.items()})
+            if dtype == torch.bfloat16:
+                calls = {
+                    "fwd_ms": (lambda: rs.filtered_gelu_fwd(x, u, d), {"filtered_gelu_fwd": 1}),
+                    "bwd_ms": (lambda: rs.filtered_gelu_bwd(x, u, d, g), {"filtered_gelu_bwd": 1}),
+                    "plain_fwd_ms": (lambda: rs.filtered_gelu_phases(x, u, d), None),
+                    "plain_bwd_ms": (lambda: torch.autograd.grad(ref, xg, g, retain_graph=True),
+                                     None),
+                    "conv_fwd_ms": (lambda: conv_form(x, u, d), None),
+                    "conv_bwd_ms": (lambda: torch.autograd.grad(conv, xc, g, retain_graph=True),
+                                    None),
+                }
+                for key, (fn, per_call) in calls.items():
+                    row[key] = device_ms(fn, iters=10 if per_call else 3, per_call=per_call)
+                for key, bwd in (("fwd", False), ("bwd", True)):
+                    row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound(
+                        [fg_times(numel, k, bwd)])
+                log(f"  {tag:<28} err of max: fwd {errs['fwd'][1]:.1e} bwd {errs['bwd'][1]:.1e}"
+                    f" (vs conv form {errs['fwd_conv'][1]:.1e} {errs['bwd_conv'][1]:.1e})"
+                    f"  device us fwd/bwd: kernel {row['fwd_ms'] * 1e3:8.1f} "
+                    f"{row['bwd_ms'] * 1e3:8.1f} bound {row['fwd_bound_ms'] * 1e3:7.1f} "
+                    f"{row['bwd_bound_ms'] * 1e3:7.1f} ({row['fwd_bound_by']}) plain "
+                    f"{row['plain_fwd_ms'] * 1e3:8.1f} {row['plain_bwd_ms'] * 1e3:8.1f} conv form "
+                    f"{row['conv_fwd_ms'] * 1e3:8.1f} {row['conv_bwd_ms'] * 1e3:8.1f}")
+            else:
+                log(f"  {tag:<28} err of max: fwd {errs['fwd'][1]:.1e} bwd {errs['bwd'][1]:.1e}"
+                    f" (vs conv form {errs['fwd_conv'][1]:.1e} {errs['bwd_conv'][1]:.1e})")
+            rows.append(row)
+            del x, g, y, dx, xg, ref, ref_dx, xc, conv, conv_dx
+        torch.cuda.empty_cache()
+    # per bf16 train step: every call's forward and backward
+    by_shape = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}
+    per_step = {}
+    for name, shapes in steps.items():
+        entries = [(by_shape[tuple(e["shape"])], e["calls"]) for e in shapes]
+        t = {key: sum(n * r[key] for r, n in entries)
+             for key in ("fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_bwd_ms", "conv_fwd_ms",
+                         "conv_bwd_ms")}
+        times = [fg_times(math.prod(r["shape"]), k, bwd) for r, n in entries
+                 for bwd in (False, True) for _ in range(n)]
+        t["bound_ms"], t["bound_by"] = bound(times)
+        t["calls"] = sum(n for _, n in entries)
+        per_step[name] = t
+        log(f"  per {name} step ({t['calls']} calls, forward + backward): kernel "
+            f"{t['fwd_ms'] + t['bwd_ms']:.3f} ms, bound {t['bound_ms']:.3f} ({t['bound_by']}), "
+            f"plain {t['plain_fwd_ms'] + t['plain_bwd_ms']:.3f}, conv form "
+            f"{t['conv_fwd_ms'] + t['conv_bwd_ms']:.3f}")
+    return dict(rows=rows, steps=steps, per_step=per_step, max_err=max_err, max_rel=max_rel)
 
 
 def chain_errors(got, ref) -> tuple[float, float, float]:
@@ -668,8 +847,10 @@ def phase_qk_rowsum(kp) -> dict:
     return dict(rows=rows, packed_over_perhead=ratio, d128_over_d8=depth, verdict=verdict)
 
 
-def phase_unet(fa, weights, unet_mod, config) -> None:
-    """Full-width Config-D forward: f32 card vs CPU, bf16 finite, 6 launches each."""
+def phase_unet(fa, rs, weights, unet_mod, config) -> int:
+    """Full-width Config-D forward: f32 card vs CPU, bf16 finite, 6 launches
+    each; the bf16 forward's filtered GELUs through the kernel (no depthwise
+    conv of the conv form left), whose launches per forward it returns."""
     import dataclasses
 
     f32 = dataclasses.replace(config, compute_dtype="float32")
@@ -688,16 +869,48 @@ def phase_unet(fa, weights, unet_mod, config) -> None:
         err = (out - ref).abs().max().item()
         log(f"  f32 forward card vs cpu: max abs err {err:.2e} (atol 1e-3)")
         check(err <= 1e-3, f"f32 UNet forward err {err}")
-        before = fa.flash_attention_fwd.launches
+        before = fa.flash_attention_fwd.launches, rs.filtered_gelu_fwd.launches
         outb = bf16(x.cuda(), t.cuda()).cpu()
-        check(fa.flash_attention_fwd.launches - before == 6, "bf16 forward: 6 launches")
+        check(fa.flash_attention_fwd.launches - before[0] == 6, "bf16 forward: 6 launches")
+        fg = rs.filtered_gelu_fwd.launches - before[1]
+        check(fg > 0, "bf16 forward: no filtered_gelu launch")
         check(bool(torch.isfinite(outb).all()) and outb.shape == (16, 32, 32, 3), "bf16 forward")
-        log(f"  bf16 forward finite; max |bf16 - f32 cpu| {(outb - ref).abs().max().item():.3e}")
+        log(f"  bf16 forward finite; max |bf16 - f32 cpu| {(outb - ref).abs().max().item():.3e}; "
+            f"{fg} filtered_gelu launches")
+        # The conv form's depthwise convs are gone for the filtered GELUs: only
+        # the six resampling convs of Down and Up are left (a spy counts them).
+        depthwise, plain_dw = [], rs._depthwise
+        rs._depthwise = lambda *a: depthwise.append(1) or plain_dw(*a)
+        try:
+            bf16(x.cuda(), t.cuda())
+            dw_phases = len(depthwise)
+            os.environ["AFDM_FG_IMPL"] = "conv"
+            outc = bf16(x.cuda(), t.cuda()).cpu()
+        finally:
+            rs._depthwise = plain_dw
+            os.environ.pop("AFDM_FG_IMPL")
+        dw_conv = len(depthwise) - dw_phases
+        log(f"  depthwise convs a bf16 forward: {dw_phases} with the kernel, {dw_conv} with "
+            f"AFDM_FG_IMPL=conv; max |kernel - conv form| {(outb - outc).abs().max().item():.3e}")
+        check(dw_phases == 6 and dw_conv == 6 + 2 * fg, f"depthwise convs {dw_phases}, {dw_conv}")
         xc, tc = x.cuda(), t.cuda()
+        profiles = {}
         for name, model in (("bf16", bf16), ("f32", gpu)):
             ms = call_ms(lambda: model(xc, tc), iters=20)
+            expect = {"flash_fwd": 6, "filtered_gelu": fg if name == "bf16" else 0}
+            profiles[name] = profile_forward(model, xc, tc, expect)
             log(f"  {name} forward n=16: {ms:.3f} ms per forward (CUDA events); profiler, "
-                f"one forward: {json.dumps(profile_forward(model, xc, tc))}")
+                f"one forward: {json.dumps(profiles[name])}")
+        os.environ["AFDM_FG_IMPL"] = "conv"
+        try:
+            profiles["conv"] = profile_forward(bf16, xc, tc, {"flash_fwd": 6, "filtered_gelu": 0})
+        finally:
+            os.environ.pop("AFDM_FG_IMPL")
+        log(f"  bf16 forward n=16 with AFDM_FG_IMPL=conv, profiler: {json.dumps(profiles['conv'])}")
+        # in the profile too: the filtered GELUs' depthwise kernels are gone
+        check(profiles["bf16"]["depthwise_conv_kernels"] < profiles["conv"]["depthwise_conv_kernels"],
+              f"depthwise conv kernels in the profile: {profiles['bf16']['depthwise_conv_kernels']} "
+              f"with the kernel pair, {profiles['conv']['depthwise_conv_kernels']} with the conv form")
 
     # Sampler on the card vs the CPU, same weights and injected noise.
     from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
@@ -712,6 +925,7 @@ def phase_unet(fa, weights, unet_mod, config) -> None:
     diff = np.abs(outs[0] - outs[1])
     log(f"  DDIM-5 card vs cpu (uint8): max diff {diff.max()}, share differing {np.mean(diff > 0):.4f}")
     check(diff.max() <= 1 and np.mean(diff > 0) <= 0.02, "DDIM-5 card vs cpu")
+    return fg
 
 
 def phase_train_step_vs_cpu(fa, weights, config) -> None:
@@ -758,17 +972,19 @@ def phase_train_step_vs_cpu(fa, weights, config) -> None:
     check(0 < moved <= 3.1e-4, f"f32 step: parameters moved by {moved}")
 
 
-def profile_forward(model, x, t) -> dict:
+def profile_forward(model, x, t, expect: dict) -> dict:
     """Device time by kernel family for one forward (torch.profiler)."""
     model(x, t)
-    events, wall = device_events(lambda: model(x, t), {"flash_fwd": 6})
+    events, wall = device_events(lambda: model(x, t), expect)
     total = sum(us for _, us in events)
-    attn = sum(us for name, us in events if "flash_fwd" in name)
+    fam = {key: sum(us for name, us in events if key in name) for key in expect}
     return {"wall_ms": round(wall * 1e3, 3), "device_busy_ms": round(total / 1e3, 3),
-            "device_kernels": len(events), "flash_fwd_ms": round(attn / 1e3, 4)}
+            "device_kernels": len(events),
+            "depthwise_conv_kernels": sum("conv_depthwise2d" in name for name, _ in events),
+            **{f"{key}_ms": round(us / 1e3, 4) for key, us in fam.items()}}
 
 
-def phase_cli(fa, cli) -> list[dict]:
+def phase_cli(fa, rs, cli, fg: int) -> list[dict]:
     os.makedirs(OUT_DIR, exist_ok=True)
     common = ["--variant", "3", "--image-size", "32", "--image-channels", "3",
               "--compute-dtype", "bfloat16", "--f-kernel", "3", "--f-beta", "2",
@@ -785,17 +1001,21 @@ def phase_cli(fa, cli) -> list[dict]:
         args = cli.build_parser().parse_args(
             ["sample", *common, *extra, "--out", os.path.join(OUT_DIR, f"{name}.png")])
         torch.cuda.synchronize()
-        fa.flash_attention_fwd.launches = 0
+        fa.flash_attention_fwd.launches = rs.filtered_gelu_fwd.launches = 0
         t0 = time.perf_counter()
         final = cli.run_sample(args)
         wall = time.perf_counter() - t0
-        launches = fa.flash_attention_fwd.launches
-        log(f"  {name}: {wall:.2f} s wall, {launches} flash_fwd launches, "
-            f"output {final.shape} {final.dtype}, pixel std {final.std():.1f}")
+        launches, fg_launches = fa.flash_attention_fwd.launches, rs.filtered_gelu_fwd.launches
+        log(f"  {name}: {wall:.2f} s wall, {launches} flash_fwd and {fg_launches} "
+            f"filtered_gelu_fwd launches, output {final.shape} {final.dtype}, "
+            f"pixel std {final.std():.1f}")
         check(launches == expect, f"{name}: {launches} launches, expected {expect}")
+        check(fg_launches == expect // 6 * fg,
+              f"{name}: {fg_launches} filtered_gelu launches, expected {expect // 6 * fg}")
         check(final.shape == (16, 32, 32, 3) and final.dtype == np.uint8, f"{name}: output")
         check(final.std() > 0, f"{name}: constant output")
-        results.append(dict(run=name, wall_s=wall, launches=launches))
+        results.append(dict(run=name, wall_s=wall, launches=launches,
+                            fg_fwd_launches=fg_launches))
     return results
 
 
@@ -805,36 +1025,50 @@ TRAIN_FLAGS = ["--variant", "3", "--image-size", "32", "--batch-size", "256",
                "--device", "cuda"]
 
 
-def phase_cli_train(fa, cli) -> list[dict]:
+def phase_cli_train(fa, rs, cli, fg: int) -> list[dict]:
     """The training path through the CLI: train, sample from its checkpoint,
-    and a short run with every opt-in optimizer knob."""
+    a short run with every opt-in optimizer knob, and the two 128-px regimes
+    of benchmarks/train128.py. ``fg``: filtered-GELU calls per forward."""
     import shutil
 
     root = os.path.join(OUT_DIR, "train_root")
     shutil.rmtree(root, ignore_errors=True)
     results = []
 
-    def counted(name, fn, expect):
+    def counted(name, fn, expect, fg_expect):
+        """Runs fn with every launch counter set to 0 just before; checks the
+        attention launches (fwd, bwd) and the filtered-GELU ones (fwd, bwd;
+        None: any equal nonzero pair)."""
         torch.cuda.synchronize()
         fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+        rs.filtered_gelu_fwd.launches = rs.filtered_gelu_bwd.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         value = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+        fg_counts = (rs.filtered_gelu_fwd.launches, rs.filtered_gelu_bwd.launches)
         check(counts == expect, f"{name}: launches (fwd, bwd) {counts}, expected {expect}")
+        if fg_expect is None:
+            check(fg_counts[0] > 0 and fg_counts[0] == fg_counts[1],
+                  f"{name}: filtered_gelu launches {fg_counts}")
+        else:
+            check(fg_counts == fg_expect,
+                  f"{name}: filtered_gelu launches {fg_counts}, expected {fg_expect}")
         results.append(dict(run=name, wall_s=wall, fwd_launches=counts[0],
-                            bwd_launches=counts[1],
+                            bwd_launches=counts[1], fg_fwd_launches=fg_counts[0],
+                            fg_bwd_launches=fg_counts[1],
                             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
         return value, wall
 
     # 512 synthetic images at batch 256: 2 steps an epoch, 10 steps.
     args = cli.build_parser().parse_args(["train", *TRAIN_FLAGS, "--epochs", "5", "--root", root])
-    losses, wall = counted("train_10_steps", lambda: cli.run_train(args), (60, 60))
+    losses, wall = counted("train_10_steps", lambda: cli.run_train(args), (60, 60),
+                           (10 * fg, 10 * fg))
     log(f"  train 10 steps at batch 256: {wall:.2f} s wall (first steps included), epoch mean "
-        f"losses {[round(x, 4) for x in losses]}, 60 + 60 launches, "
-        f"peak memory {results[-1]['peak_mem_gb']:.2f} GB")
+        f"losses {[round(x, 4) for x in losses]}, 60 + 60 attention and {10 * fg} + {10 * fg} "
+        f"filtered_gelu launches, peak memory {results[-1]['peak_mem_gb']:.2f} GB")
     check(len(losses) == 5 and all(math.isfinite(x) for x in losses), f"train losses {losses}")
     check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
     ckpt = os.path.join(root, "models", "DDPM_Uncondtional_CIFAR10_3", "ckpt_CIFAR10_3.npz")
@@ -846,7 +1080,8 @@ def phase_cli_train(fa, cli) -> list[dict]:
          "--compute-dtype", "bfloat16", "--f-kernel", "3", "--f-beta", "2", "--dataset",
          "CIFAR10", "--device", "cuda", "--ddim-steps", "20", "--n", "16", "--root", root,
          "--out", os.path.join(OUT_DIR, "trained_ddim20.png")])
-    final, wall = counted("sample_trained_ddim20", lambda: cli.run_sample(sample_args), (120, 0))
+    final, wall = counted("sample_trained_ddim20", lambda: cli.run_sample(sample_args), (120, 0),
+                          (20 * fg, 0))
     log(f"  sample from the trained checkpoint, DDIM-20: {wall:.2f} s, pixel std {final.std():.1f}")
     check(final.shape == (16, 32, 32, 3) and final.dtype == np.uint8 and final.std() > 0,
           "sample from the trained checkpoint")
@@ -858,10 +1093,35 @@ def phase_cli_train(fa, cli) -> list[dict]:
         ["train", *TRAIN_FLAGS, "--epochs", "2", "--root", knob_root, "--use-ema",
          "--grad-accum", "2", "--grad-clip", "1.0", "--lr-schedule", "warmup_cosine",
          "--warmup-steps", "1"])
-    losses, wall = counted("train_knobs_4_steps", lambda: cli.run_train(args), (24, 24))
+    losses, wall = counted("train_knobs_4_steps", lambda: cli.run_train(args), (24, 24),
+                           (4 * fg, 4 * fg))
     log(f"  train with EMA, accumulation 2, clip 1.0, warmup-cosine: {wall:.2f} s, "
         f"losses {[round(x, 4) for x in losses]}")
     check(all(math.isfinite(x) for x in losses), f"knob run losses {losses}")
+
+    # The 128-px regimes on a seeded tree of 16 PNGs (resized to 128 by the
+    # loader): 4 steps at batch 4, 2 at batch 8; sa2 and sa3 at D = 128 in the
+    # reference-quirk-w128 regime.
+    tree = os.path.join(OUT_DIR, "tree128")
+    shutil.rmtree(tree, ignore_errors=True)
+    write_image_tree(tree, 4, 4, seed=9)
+    for name, width, batch in TRAIN_128:
+        steps = 16 // batch
+        args = cli.build_parser().parse_args(
+            ["train", "--variant", "3", "--image-size", "128", "--base-width", str(width),
+             "--batch-size", str(batch), "--image-channels", "3", "--compute-dtype", "bfloat16",
+             "--f-kernel", "3", "--f-beta", "2", "--dataset", "CIFAR10", "--dataset-path", tree,
+             "--epochs", "1", "--image-gen-per-epoch", "0", "--device", "cuda",
+             "--root", os.path.join(OUT_DIR, f"train128_{name}")])
+        losses, wall = counted(f"train_128px_{name}", lambda: cli.run_train(args),
+                               (6 * steps, 6 * steps), None)
+        r = results[-1]
+        log(f"  train 128 px {name} (base width {width}, batch {batch}): {steps} steps in "
+            f"{wall:.2f} s (first step included), epoch mean loss {losses[0]:.4f}, launches "
+            f"attention {r['fwd_launches']} + {r['bwd_launches']}, filtered_gelu "
+            f"{r['fg_fwd_launches']} + {r['fg_bwd_launches']}, peak memory {r['peak_mem_gb']:.2f} GB")
+        check(len(losses) == 1 and math.isfinite(losses[0]), f"128-px {name} losses {losses}")
+        r["epoch_losses"] = losses
     return results
 
 
@@ -1407,41 +1667,55 @@ def time_loader(data, native) -> dict:
     return out
 
 
-def profile_step(step, state, batch) -> dict:
-    """Device time and kernel count of one train step (torch.profiler)."""
+def profile_step(step, state, batch, fg: int) -> dict:
+    """Device time and kernel count of one train step (torch.profiler); ``fg``
+    filtered-GELU forward (and as many backward) launches a step."""
     events, wall = device_events(lambda: step(state, batch)[1].item(),
-                                 {"flash_fwd": 6, "flash_bwd": 6 * BWD_KERNELS[torch.bfloat16]})
-    busy = {"total": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0}
+                                 {"flash_fwd": 6, "flash_bwd": 6 * BWD_KERNELS[torch.bfloat16],
+                                  "filtered_gelu": 2 * fg})
+    busy = {"total": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0, "filtered_gelu": 0.0}
     by_name: dict[str, list] = {}  # kernel name -> [device us, launches]
     for name, us in events:
         busy["total"] += us
         entry = by_name.setdefault(name, [0.0, 0])
         entry[0] += us
         entry[1] += 1
-        for key in ("flash_fwd", "flash_bwd"):
+        for key in ("flash_fwd", "flash_bwd", "filtered_gelu"):
             if key in name:
                 busy[key] += us
     kernels = len(events)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {"profiled_wall_ms": round(wall * 1e3, 3),
             "device_busy_ms": round(busy["total"] / 1e3, 3), "device_kernels": kernels,
+            "depthwise_conv_kernels": sum("conv_depthwise2d" in name for name, _ in events),
             "flash_fwd_ms": round(busy["flash_fwd"] / 1e3, 4),
             "flash_bwd_ms": round(busy["flash_bwd"] / 1e3, 4),
+            "filtered_gelu_ms": round(busy["filtered_gelu"] / 1e3, 4),
             "top_kernels": [{"name": name[:100], "ms": round(us / 1e3, 3), "launches": count}
                             for name, (us, count) in top]}
 
 
-def phase_step_time(fa, config) -> list[dict]:
-    """Steady-state train step on one fixed batch: 32 px at batch 256, then
-    64 px (base width 64) at batch 32. A ``.item()`` closes the timed region."""
+# Phase 6's steps: (image, base width, batch, warm-up steps, timed steps, the
+# filtered-GELU forms to run): 32 px and 64 px with the kernel pair and, in the
+# same run, with AFDM_FG_IMPL=conv; then the two 128-px regimes of
+# benchmarks/train128.py (TRAIN_128).
+STEP_CELLS = [(32, 32, 256, 3, 10, ("phases", "conv")), (64, 64, 32, 2, 5, ("phases", "conv"))] + [
+    (128, width, batch, 2, 5, ("phases",)) for _, width, batch in TRAIN_128]
+
+
+def phase_step_time(fa, rs, config) -> list[dict]:
+    """Steady-state train step on one fixed batch at each STEP_CELLS entry,
+    with each filtered-GELU form it names. A ``.item()`` closes the timed
+    region; peak memory counts from before the warm-up steps."""
     import dataclasses
 
     from aliasfree_diffusion_models_pytorch_tpu_torch import train as train_mod
     from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
 
     results = []
-    for px, n, warm, timed in ((32, 256, 3, 10), (64, 32, 2, 5)):
-        cfg = dataclasses.replace(config, image_size=px, batch_size=n, run_name=f"bench{px}")
+    for px, width, n, warm, timed, impls in STEP_CELLS:
+        cfg = dataclasses.replace(config, image_size=px, base_width=width, batch_size=n,
+                                  run_name=f"bench{px}")
         model, state = train_mod.create_train_state(cfg, device="cuda")
         step_fn = train_mod.make_train_step(
             model, cfg, Diffusion(noise_steps=1000, img_size=px, device="cuda"))
@@ -1449,32 +1723,48 @@ def phase_step_time(fa, config) -> list[dict]:
         step = lambda st, b: step_fn(st, b, gen)  # noqa: E731
         rng = np.random.default_rng(0)
         batch = torch.from_numpy(rng.standard_normal((n, px, px, 3)).astype(np.float32)).cuda()
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(warm):
-            state, loss = step(state, batch)
-        loss.item()
-        fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
-        t0 = time.perf_counter()
-        for _ in range(timed):
-            state, loss = step(state, batch)
-        final_loss = loss.item()  # waits for the device inside the timed region
-        step_ms = (time.perf_counter() - t0) / timed * 1e3
-        counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
-        check(counts == (6 * timed, 6 * timed), f"{px}px steps: launches {counts}")
-        check(math.isfinite(final_loss), f"{px}px step loss {final_loss}")
-        prof = profile_step(step, state, batch)
-        row = dict(px=px, batch=n, step_ms=step_ms, imgs_per_s=n / step_ms * 1e3,
-                   idle_share=1.0 - prof["device_busy_ms"] / step_ms,
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   final_loss=final_loss, **prof)
-        results.append(row)
-        log(f"  {px}px batch {n} bf16: {step_ms:.2f} ms per step, {row['imgs_per_s']:.1f} "
-            f"images/s, device busy {prof['device_busy_ms']:.2f} ms "
-            f"(idle share {row['idle_share']:.2f}), {prof['device_kernels']} kernels per step, "
-            f"flash_fwd {prof['flash_fwd_ms']:.3f} ms + flash_bwd {prof['flash_bwd_ms']:.3f} ms "
-            f"per step, peak memory {row['peak_mem_gb']:.2f} GB")
-        for k in prof["top_kernels"]:
-            log(f"    {k['ms']:8.3f} ms {k['launches']:5d}x  {k['name']}")
+        for impl in impls:
+            os.environ["AFDM_FG_IMPL"] = impl
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for _ in range(warm):
+                    state, loss = step(state, batch)
+                loss.item()
+                fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+                rs.filtered_gelu_fwd.launches = rs.filtered_gelu_bwd.launches = 0
+                t0 = time.perf_counter()
+                for _ in range(timed):
+                    state, loss = step(state, batch)
+                final_loss = loss.item()  # waits for the device inside the timed region
+                step_ms = (time.perf_counter() - t0) / timed * 1e3
+                counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+                fg = rs.filtered_gelu_fwd.launches // timed
+                check(counts == (6 * timed, 6 * timed), f"{px}px steps: launches {counts}")
+                check(rs.filtered_gelu_fwd.launches == rs.filtered_gelu_bwd.launches == fg * timed
+                      and (fg > 0) == (impl == "phases"),
+                      f"{px}px {impl} steps: filtered_gelu launches "
+                      f"{rs.filtered_gelu_fwd.launches}, {rs.filtered_gelu_bwd.launches}")
+                check(math.isfinite(final_loss), f"{px}px step loss {final_loss}")
+                prof = profile_step(step, state, batch, fg)
+            finally:
+                os.environ.pop("AFDM_FG_IMPL")
+            row = dict(px=px, base_width=width, batch=n, fg_impl=impl, step_ms=step_ms,
+                       imgs_per_s=n / step_ms * 1e3,
+                       idle_share=1.0 - prof["device_busy_ms"] / step_ms,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       fg_launches_per_step=fg, final_loss=final_loss, **prof)
+            results.append(row)
+            log(f"  {px}px base width {width} batch {n} bf16, filtered GELU {impl}: "
+                f"{step_ms:.2f} ms per step, {row['imgs_per_s']:.1f} images/s, device busy "
+                f"{prof['device_busy_ms']:.2f} ms (idle share {row['idle_share']:.2f}), "
+                f"{prof['device_kernels']} kernels per step, flash_fwd {prof['flash_fwd_ms']:.3f}"
+                f" ms + flash_bwd {prof['flash_bwd_ms']:.3f} ms, filtered_gelu "
+                f"{prof['filtered_gelu_ms']:.3f} ms ({fg} + {fg} launches) per step, "
+                f"{prof['depthwise_conv_kernels']} depthwise conv kernels, "
+                f"peak memory {row['peak_mem_gb']:.2f} GB")
+            for k in prof["top_kernels"]:
+                log(f"    {k['ms']:8.3f} ms {k['launches']:5d}x  {k['name']}")
         del model, state, step_fn, step, batch
         torch.cuda.empty_cache()
     return results
@@ -1485,9 +1775,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false — needs a CUDA GPU")
     from aliasfree_diffusion_models_pytorch_tpu_torch import cli, probes
+    from aliasfree_diffusion_models_pytorch_tpu_torch.models import blocks
     from aliasfree_diffusion_models_pytorch_tpu_torch.models import unet as unet_mod
     from aliasfree_diffusion_models_pytorch_tpu_torch.ops import flash_attention as fa
     from aliasfree_diffusion_models_pytorch_tpu_torch.ops import probes as kp
+    from aliasfree_diffusion_models_pytorch_tpu_torch.ops import resample as rs
     from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels, weights
 
     # Every f32 comparison below runs in full f32 on the card.
@@ -1515,9 +1807,10 @@ def main() -> int:
     # The bf16 attention kernels (everything of flash_fwd / flash_bwd but the
     # f32 CUDA-core kernels of the first port, `<float, D>`) keep every value
     # in registers.
-    spilled = [e["kernel"] for e in ptxas if e["library"].startswith("flash_")
-               and "float" not in e["kernel"] and e["spill_stores"] + e["spill_loads"]]
-    check(not spilled, f"bf16 attention kernels spill: {spilled}")
+    spilled = [e["kernel"] for e in ptxas if e["spill_stores"] + e["spill_loads"] and (
+        e["library"] == "filtered_gelu" or e["library"].startswith("flash_")
+        and "float" not in e["kernel"])]
+    check(not spilled, f"bf16 attention or filtered-GELU kernels spill: {spilled}")
 
     log(f"  [build: {time.perf_counter() - t_build:.1f} s]")
     t_phase = time.perf_counter()
@@ -1544,21 +1837,24 @@ def main() -> int:
     config = cli.config_from_args(cli.build_parser().parse_args(
         ["sample", "--variant", "3", "--image-size", "32", "--image-channels", "3",
          "--compute-dtype", "bfloat16", "--f-kernel", "3", "--f-beta", "2"]))
+    log("[2e] filtered_gelu pair vs plain version and conv form at the train steps' shapes")
+    fgres = phase_fg_kernel(rs, unet_mod, blocks, config)
+    done("filtered_gelu kernels")
     log("[3] full-width Config-D UNet forward and sampler, card vs cpu")
-    phase_unet(fa, weights, unet_mod, config)
+    fg = phase_unet(fa, rs, weights, unet_mod, config)
     done("unet card vs cpu")
     log("[3b] full-width f32 train step, card vs cpu")
     phase_train_step_vs_cpu(fa, weights, config)
     done("train step card vs cpu")
 
     log("[4] main path: CLI sample")
-    runs = phase_cli(fa, cli)
+    runs = phase_cli(fa, rs, cli, fg)
     done("cli sample")
     log("[5] main path: CLI train, sample from its checkpoint, optimizer knobs")
-    train_runs = phase_cli_train(fa, cli)
+    train_runs = phase_cli_train(fa, rs, cli, fg)
     done("cli train")
     log("[6] steady-state train step")
-    step_rows = phase_step_time(fa, config)
+    step_rows = phase_step_time(fa, rs, config)
     done("step time")
     log("[7] study path: CLI probe, run, rotate, shift, eval; Inception forward")
     study = phase_study(fa, kp, cli)
@@ -1575,6 +1871,7 @@ def main() -> int:
     bwd_rows = [r for r in bres["rows"] if r["px"] == 32 and r["dtype"] == "bfloat16"]
     bwd_bound, bwd_bound_by = bound(
         [attention_bwd_times(r["bh"], r["s"], r["d"], torch.bfloat16) for r in bwd_rows])
+    fg_step = fgres["per_step"]["32px_w32_b256"]
     kernels_line = {"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -1683,6 +1980,34 @@ def main() -> int:
         "verdict": qres["verdict"],
         "main_path_runs": {"probe_headpack": study["probe_headpack"],
                            "result": study["probe_headpack_result"]},
+    }, {
+        "name": "filtered_gelu",
+        "route": "cuda",
+        "source": "aliasfree_diffusion_models_pytorch_tpu_torch/csrc/filtered_gelu.cu",
+        "replaces": "aliasfree_diffusion_models_pytorch_tpu/ops/resample.py:345",
+        # forward and backward launches of the 10-step CLI train run
+        "launches": train_runs[0]["fg_fwd_launches"] + train_runs[0]["fg_bwd_launches"],
+        "max_abs_err": max(fgres["max_err"].values()),
+        # times: every filtered-GELU call of one bf16 32-px Config-D train
+        # step at batch 256, forward and backward; the yardstick is the conv
+        # form (upsample2x, gelu_exact, downsample2x and autograd's backward):
+        # no single PyTorch call computes the function
+        "ms": fg_step["fwd_ms"] + fg_step["bwd_ms"],
+        "plain_ms": fg_step["plain_fwd_ms"] + fg_step["plain_bwd_ms"],
+        "bound_ms": fg_step["bound_ms"],
+        "bound_by": fg_step["bound_by"],
+        "library_ms": fg_step["conv_fwd_ms"] + fg_step["conv_bwd_ms"],
+        "library_call": "conv form: upsample2x, gelu_exact, downsample2x, autograd backward",
+        "max_abs_err_by_dtype": {str(k)[6:]: v for k, v in fgres["max_err"].items()},
+        "max_rel_err_by_dtype": {str(k)[6:]: v for k, v in fgres["max_rel"].items()},
+        "rel_tol_by_dtype": {str(k)[6:]: v for k, v in FG_REL_TOL.items()},
+        "kernels_per_launch": 1,
+        "launches_per_forward": fg,
+        "ptxas": [e for e in ptxas if e["library"] == "filtered_gelu"],
+        "per_step": fgres["per_step"],
+        "steps": fgres["steps"],
+        "shapes": fgres["rows"],
+        "main_path_runs": train_runs + runs,
     }], "study_path": {k: v for k, v in study.items() if not k.startswith("probe_")},
         "grid_path": grid,
         "profiler_shortfalls": PROFILER_SHORTFALLS}

@@ -13,6 +13,7 @@ exact resume on the CPU.
   bit-equal).
 """
 
+import json
 import os
 
 import jax
@@ -143,12 +144,18 @@ TINY = ["train", "--device", "cpu", "--variant", "3", "--f-kernel", "3", "--f-be
 CKPT = os.path.join("models", "DDPM_Uncondtional_CIFAR10_3", "ckpt_CIFAR10_3.npz")
 
 
-@pytest.mark.parametrize("extra", [[], ["--grad-accum", "3", "--grad-clip", "1.0"]],
-                         ids=["adamw", "accum3_clip"])
-def test_two_epochs_equal_one_and_a_resumed_one(tmp_path, extra):
+@pytest.mark.parametrize("extra,first", [
+    ([], []),
+    (["--grad-accum", "3", "--grad-clip", "1.0"], []),
+    # The first call is told the whole run's horizon (the straight run derives
+    # 8 updates from its 2 epochs); the resumed call derives 4 from its own
+    # epoch and must adopt the 8 stored beside the checkpoint instead.
+    (["--lr-schedule", "warmup_cosine", "--warmup-steps", "2"], ["--lr-total-steps", "8"]),
+], ids=["adamw", "accum3_clip", "warmup_cosine"])
+def test_two_epochs_equal_one_and_a_resumed_one(tmp_path, extra, first):
     straight, split = str(tmp_path / "a"), str(tmp_path / "b")
     assert cli.main([*TINY, *extra, "--epochs", "2", "--root", straight]) == 0
-    assert cli.main([*TINY, *extra, "--epochs", "1", "--root", split]) == 0
+    assert cli.main([*TINY, *extra, *first, "--epochs", "1", "--root", split]) == 0
     assert cli.main([*TINY, *extra, "--epochs", "1", "--root", split, "--resume"]) == 0
     with np.load(os.path.join(straight, CKPT)) as a, np.load(os.path.join(split, CKPT)) as b:
         assert set(a.files) == set(b.files)
@@ -157,3 +164,22 @@ def test_two_epochs_equal_one_and_a_resumed_one(tmp_path, extra):
         for key in a.files:
             scale = max(float(np.abs(a[key]).max()), 1e-30)
             assert float(np.abs(a[key] - b[key]).max()) <= 1e-6 * scale, key
+
+
+def test_a_resumed_run_numbers_its_epochs_on(tmp_path):
+    """The resumed call's epoch is the checkpoint's: its sample grid is
+    ``1.jpg`` beside the first call's ``0.jpg``, which it leaves as it was,
+    and its run header names the epoch it starts at."""
+    root = str(tmp_path)
+    flags = [*TINY, "--image-gen-per-epoch", "2", "--epochs", "1", "--root", root]
+    results = tmp_path / "results" / "DDPM_Uncondtional_CIFAR10_3"
+    assert cli.main(flags) == 0
+    first = (results / "0.jpg").read_bytes()
+    assert sorted(p.name for p in results.iterdir()) == ["0.jpg"]
+    assert cli.main([*flags, "--resume"]) == 0
+    assert sorted(p.name for p in results.iterdir()) == ["0.jpg", "1.jpg"]
+    assert (results / "0.jpg").read_bytes() == first
+    runs = tmp_path / "runs" / "DDPM_Uncondtional_CIFAR10_3" / "metrics.jsonl"
+    headers = [json.loads(line) for line in runs.read_text().splitlines()
+               if "run_header" in json.loads(line)]
+    assert [(h["resumed_step"], h["first_epoch"]) for h in headers] == [(0, 0), (4, 1)]

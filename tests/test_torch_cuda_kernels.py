@@ -73,7 +73,7 @@ def test_forward_kernel_matches_plain_version(card, s, d):
     torch.testing.assert_close(ssum, ref_s, rtol=1e-4, atol=0)
 
 
-@pytest.mark.parametrize("s,d", [(200, 16), (16, 32), (1024, 8), (300, 64)])
+@pytest.mark.parametrize("s,d", [(200, 16), (16, 32), (1024, 8), (300, 64), (100, 128)])
 def test_backward_kernel_matches_plain_version(card, s, d):
     q, k, v, g = _tensors(card, 2, 4, s, d, 4, seed=s + 1)
     out, m, ssum = fa.flash_attention_fwd(q, k, v, with_stats=True)
@@ -129,17 +129,83 @@ def test_bf16_tensor_core_kernels_at_main_path_shapes(card, b, h, s, d):
                          ids=["s16_four_heads", "s32_two_heads", "s300_ragged", "s1024"])
 def test_bf16_forward_at_head_dim_128(card, b, h, s):
     """D = 128 (sa2 and sa3 of the 128-px UNet): the forward takes it, in
-    dynamic shared memory above 48 KB; the backward has no such
-    instantiation and refuses it."""
-    q, k, v = _tensors(card, b, h, s, 128, 3, seed=s, dtype=torch.bfloat16)
+    dynamic shared memory above 48 KB, and so does the backward (K and V
+    tiles in shared memory, dQ in two halves), with and without stats."""
+    q, k, v, g = _tensors(card, b, h, s, 128, 4, seed=s, dtype=torch.bfloat16)
     out, m, ssum = fa.flash_attention_fwd(q, k, v, with_stats=True)
     ref_out, ref_m, ref_s = fa.attention_reference(q, k, v, with_stats=True)
     _assert_within_bf16_ulps(out, ref_out, "out")
     _assert_within_bf16_ulps(fa.flash_attention_fwd(q, k, v), ref_out, "out (fold mode)")
     torch.testing.assert_close(m, ref_m, rtol=0, atol=1e-5)
     torch.testing.assert_close(ssum, ref_s, rtol=1e-4, atol=0)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_bwd(q, k, v, out, m, ssum, torch.zeros_like(q))
+    ref = fa.attention_backward_reference(q, k, v, out, m, ssum, g)
+    for stats in ((m, ssum), (None, None)):
+        before = fa.flash_attention_bwd.launches
+        got = fa.flash_attention_bwd(q, k, v, out, *stats, g)
+        assert fa.flash_attention_bwd.launches == before + 1
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            assert bool(torch.isfinite(a).all()), name
+            _assert_within_bf16_ulps(a, r, name)
+
+
+# The filtered-GELU pair (csrc/filtered_gelu.cu) against its plain version
+# (ops/resample.py: filtered_gelu_phases, and autograd of it). The forward
+# repeats the plain version's rounded f32 operations in its order, so it is
+# held to one bf16 ulp (2^-8 of the largest entry) and 1e-6 in f32 (erff
+# against torch's erf); the backward sums in an order of its own and rounds
+# dG and dP to bf16 from values a few f32 ulps apart: 2^-6 in bf16, 2e-5 in
+# f32, of the largest entry.
+FG_TOL = {torch.bfloat16: (2.0**-8, 2.0**-6), torch.float32: (1e-6, 2e-5)}
+
+
+def _fg_taps(card, k, dtype):
+    from aliasfree_diffusion_models_pytorch_tpu_torch.ops import filters
+
+    return [torch.from_numpy(filters.circular_lowpass_kernel(w, k, 2.0)).to(card, dtype)
+            for w in (np.pi / 2, np.pi / 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,c,h,w,k", [
+    (4, 32, 32, 32, 3), (8, 64, 16, 16, 3), (16, 128, 4, 4, 3), (2, 8, 64, 64, 3),
+    (3, 5, 9, 40, 3), (2, 4, 12, 7, 5), (2, 3, 6, 6, 7), (3, 2, 1, 1, 7), (2, 2, 5, 5, 1),
+])
+def test_filtered_gelu_kernels_match_plain_version(card, n, c, h, w, k, dtype):
+    from aliasfree_diffusion_models_pytorch_tpu_torch.ops import resample as tr
+
+    rng = np.random.default_rng(h * w + k)
+    x = torch.from_numpy(2 * rng.standard_normal((n, c, h, w)).astype(np.float32)).to(card, dtype)
+    g = torch.from_numpy(rng.standard_normal((n, c, h, w)).astype(np.float32)).to(card, dtype)
+    up, down = _fg_taps(card, k, dtype)
+    before = tr.filtered_gelu_fwd.launches, tr.filtered_gelu_bwd.launches
+    y = tr.filtered_gelu_fwd(x, up, down)
+    dx = tr.filtered_gelu_bwd(x, up, down, g)
+    assert (tr.filtered_gelu_fwd.launches, tr.filtered_gelu_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    xg = x.clone().requires_grad_()
+    ref = tr.filtered_gelu_phases(xg, up, down)
+    (ref_dx,) = torch.autograd.grad(ref, xg, g)
+    fwd_tol, bwd_tol = FG_TOL[dtype]
+    for name, a, r, tol in (("out", y, ref, fwd_tol), ("dx", dx, ref_dx, bwd_tol)):
+        assert a.dtype == dtype and a.shape == r.shape
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol * r.float().abs().max().item(), (name, err)
+
+
+def test_filtered_gelu_autograd_on_the_card_is_the_kernel_pair(card, monkeypatch):
+    from aliasfree_diffusion_models_pytorch_tpu_torch.ops import resample as tr
+
+    monkeypatch.delenv("AFDM_FG_IMPL", raising=False)
+    x = torch.randn(2, 8, 16, 16, device=card).bfloat16().requires_grad_()
+    up, down = _fg_taps(card, 3, torch.bfloat16)
+    before = tr.filtered_gelu_fwd.launches, tr.filtered_gelu_bwd.launches
+    tr.filtered_gelu(x, up, down).float().sum().backward()
+    assert (tr.filtered_gelu_fwd.launches, tr.filtered_gelu_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="taps"):
+        tr.filtered_gelu_fwd(x.detach(), *_fg_taps(card, 9, torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        tr.filtered_gelu_fwd(x.detach().transpose(2, 3), up, down)
 
 
 def test_bf16_kernels_refuse_misaligned_rows(card):

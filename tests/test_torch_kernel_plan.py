@@ -50,7 +50,10 @@ def test_forward_plan_at_head_dim_128_takes_one_head_a_block(s):
     assert plan.heads_per_block == 1 and plan.warps_per_head == fa.WARPS
     assert plan.q_tiles == -(-s // (fa.WARPS * fa.ROWS_PER_WARP)) and plan.blocks == 64 * plan.q_tiles
     assert fa.fwd_plan(64, s, 64).heads_per_block == (4 if s <= 16 else 2 if s <= 32 else 1)
-    assert 128 in fa.HEAD_DIMS and 128 not in fa.BWD_HEAD_DIMS
+    # the backward takes the same depths: its scratch at D = 128
+    assert 128 in fa.HEAD_DIMS
+    assert fa.bwd_scratch_shapes(64, s, 128, torch.bfloat16)["dq_acc"] == ((64, s, 128),
+                                                                           torch.float32)
 
 
 def test_forward_plan_rounds_up_a_partial_group_of_heads():
