@@ -240,36 +240,56 @@ def filtered_gelu_phases(x: torch.Tensor, up_taps, down_taps) -> torch.Tensor:
 
 
 # The kernel pair's instantiations (csrc/filtered_gelu.cu): odd k up to 7, f32
-# and bf16, 256 threads a block.
+# and bf16, 128 threads a block, each thread a strip of `cols` columns × `rows`
+# rows of one plane. Square planes of these sides at k = 3 (every filtered GELU
+# of the model) have instantiations of their own, the side a template constant;
+# every other shape and k takes the generic one.
 FG_KERNEL_SIZES = (1, 3, 5, 7)
-FG_THREADS = 256
-FG_TILE_ELEMS = 512  # outputs a block takes: two a thread
+FG_THREADS = 128
+FG_SIDES = (4, 8, 16, 32, 64, 128)
+FG_MAX_ROWS = 16
+FG_MIN_ROWS = 2
+# Threads a call should have before its strips are made shorter: about what
+# the card holds at once (132 SMs × 512 threads at the pair's register counts).
+FG_TARGET_THREADS = 65536
 
 
 @dataclasses.dataclass(frozen=True)
 class FgPlan:
-    """Launch plan of the filtered-GELU kernels on (planes, h, w) arrays."""
+    """Launch plan of the filtered-GELU kernels on (planes, h, w) arrays: the
+    instantiation and its geometry."""
 
-    tile_h: int
-    tile_w: int
-    planes_per_block: int
+    instantiation: str  # "k3_side32", or "k5_generic" and the like
+    side: int  # the square-plane instantiation's side; 0 for the generic one
+    rows: int  # rows of a thread's strip
+    cols: int  # columns of a thread's strip
+    strips_x: int  # strips across a plane
+    strips_y: int  # strips down a plane
+    threads: int
     blocks: int
 
 
-def fg_plan(planes: int, h: int, w: int, k: int) -> FgPlan:
-    """A block takes a tile of 32 columns × 16 rows of one plane, or, where a
-    plane is smaller than that, whole planes: as many as make up 512 outputs,
-    fewer where their halos would exceed about 96 KB of shared memory in the
-    backward (six f32 arrays of (h + k) × (w + k) a plane at most)."""
+def fg_plan(planes: int, h: int, w: int, k: int, aligned: bool = True) -> FgPlan:
+    """Square planes of a side in ``FG_SIDES`` at k = 3 with 16-byte aligned
+    tensors take their own instantiation (strips of min(side, 8) columns, so
+    rows are read and written as whole 8- or 16-byte words); any other input
+    the generic one (strips of 4 columns, 2 at k >= 5). Strips are up to 16
+    rows tall and are halved, down to 2 rows, while the call would have fewer
+    than ``FG_TARGET_THREADS`` threads: a tall strip recomputes less of the
+    phase row above it, a short one fills the card on a small call."""
     if planes < 1 or h < 1 or w < 1:
         raise ValueError(f"empty filtered-GELU input: planes={planes}, h={h}, w={w}")
-    tw = min(w, 32)
-    th = min(h, max(1, FG_TILE_ELEMS // tw))
-    pb = 1
-    if (th, tw) == (h, w):
-        pb = max(1, min(FG_TILE_ELEMS // (h * w), 4096 // ((h + k) * (w + k))))
-    blocks = -(-planes // pb) * -(-h // th) * -(-w // tw)
-    return FgPlan(tile_h=th, tile_w=tw, planes_per_block=pb, blocks=blocks)
+    side = h if k == 3 and aligned and h == w and h in FG_SIDES else 0
+    cols = min(side, 8) if side else (4 if k <= 3 else 2)
+    strips_x = -(-w // cols)
+    rows = min(h, FG_MAX_ROWS)
+    while rows > FG_MIN_ROWS and planes * strips_x * -(-h // rows) < FG_TARGET_THREADS:
+        rows = -(-rows // 2)
+    strips_y = -(-h // rows)
+    threads = planes * strips_x * strips_y
+    name = f"k{k}_side{side}" if side else f"k{k}_generic"
+    return FgPlan(instantiation=name, side=side, rows=rows, cols=cols, strips_x=strips_x,
+                  strips_y=strips_y, threads=threads, blocks=-(-threads // FG_THREADS))
 
 
 @functools.cache
@@ -283,9 +303,10 @@ def _fg_lib() -> ctypes.CDLL:
     return lib
 
 
-def _fg_launch(x, g, up, down) -> torch.Tensor:
+def _fg_launch(x, g, up, down) -> tuple[torch.Tensor, FgPlan]:
     """Checks and launches one kernel of the pair: the forward without ``g``,
-    the backward with it. Returns the new (n, c, h, w) tensor."""
+    the backward with it. Returns the new (n, c, h, w) tensor and the plan it
+    launched."""
     if x.dim() != 4:
         raise ValueError(f"expected an (N, C, H, W) tensor, got shape {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -303,18 +324,19 @@ def _fg_launch(x, g, up, down) -> torch.Tensor:
     if g is not None and g.shape != x.shape:
         raise ValueError(f"g must match x: {tuple(g.shape)} vs {tuple(x.shape)}")
     n, c, h, w = x.shape
-    plan = fg_plan(n * c, h, w, k)
     y = torch.empty_like(x)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, g, y) if t is not None)
+    plan = fg_plan(n * c, h, w, k, aligned)
     lib = _fg_lib()
     with torch.cuda.device(x.device):
         err = lib.afdm_filtered_gelu(
             x.data_ptr(), None if g is None else g.data_ptr(), up.data_ptr(), down.data_ptr(),
-            y.data_ptr(), n * c, h, w, k, plan.tile_h, plan.tile_w, plan.planes_per_block,
+            y.data_ptr(), n * c, h, w, k, plan.rows, plan.cols, plan.side,
             int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"filtered_gelu launch failed: "
                            f"{lib.afdm_cuda_error_string(err).decode()}")
-    return y
+    return y, plan
 
 
 def _check_device(x: torch.Tensor, fn: str) -> None:
@@ -326,34 +348,36 @@ def filtered_gelu_fwd(x: torch.Tensor, up_taps, down_taps) -> torch.Tensor:
     """The filtered GELU's forward kernel on an (N, C, H, W) CUDA tensor (f32
     or bf16; taps k × k in x's dtype and device, k odd up to 7); a CPU tensor
     takes :func:`filtered_gelu_phases`. ``launches`` counts the calls that
-    reached the card."""
+    reached the card, ``last_plan`` is the plan the last of them launched."""
     if x.device.type == "cpu":
         return filtered_gelu_phases(x, up_taps, down_taps)
     _check_device(x, "filtered_gelu_fwd")
-    y = _fg_launch(x, None, up_taps, down_taps)
+    y, filtered_gelu_fwd.last_plan = _fg_launch(x, None, up_taps, down_taps)
     filtered_gelu_fwd.launches += 1
     return y
 
 
 filtered_gelu_fwd.launches = 0
+filtered_gelu_fwd.last_plan = None
 
 
 def filtered_gelu_bwd(x: torch.Tensor, up_taps, down_taps, g: torch.Tensor) -> torch.Tensor:
     """dx of the filtered GELU for the cotangent ``g``: the backward kernel on
     a CUDA tensor, which recomputes the phases from x; on a CPU tensor autograd
     of :func:`filtered_gelu_phases`. ``launches`` counts the calls that
-    reached the card."""
+    reached the card, ``last_plan`` is the plan the last of them launched."""
     if x.device.type == "cpu":
         with torch.enable_grad():
             xg = x.detach().requires_grad_()
             return torch.autograd.grad(filtered_gelu_phases(xg, up_taps, down_taps), xg, g)[0]
     _check_device(x, "filtered_gelu_bwd")
-    dx = _fg_launch(x, g, up_taps, down_taps)
+    dx, filtered_gelu_bwd.last_plan = _fg_launch(x, g, up_taps, down_taps)
     filtered_gelu_bwd.launches += 1
     return dx
 
 
 filtered_gelu_bwd.launches = 0
+filtered_gelu_bwd.last_plan = None
 
 
 class _FilteredGelu(torch.autograd.Function):

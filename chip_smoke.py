@@ -33,9 +33,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    yardstick, the two ratios and the verdict; then the filtered-GELU pair
    (``csrc/filtered_gelu.cu``) at every distinct filtered-GELU shape of the
    bf16 train steps at 32 px (batch 256), 64 px (batch 32) and the two 128-px
-   regimes, bf16 and f32, forward and backward, against its plain version and
-   the conv form, bf16 timed beside its bound, the plain version and the conv
-   form, and summed per step;
+   regimes, and of the 32-px sampling forward (n=16), bf16 and f32, forward
+   and backward, against its plain version and the conv form (the bf16
+   forward equal to the plain version element for element, with the
+   instantiation the kernels launched at each shape), bf16 timed beside its
+   bound, the plain version and the conv form, and summed per train step;
 4. runs the full-width Config-D UNet forward (n=16) in f32 on the card
    against the same weights on the CPU (TF32 off), and in bf16, counting 6
    attention launches per forward and the filtered-GELU launches (the conv
@@ -286,6 +288,7 @@ def call_ms(fn, iters: int = 50, warmup: int = 3) -> float:
 # Every trace that came back without the kernels it had to hold: what was
 # expected and what the trace held (printed in the kernel line).
 PROFILER_SHORTFALLS: list[dict] = []
+PROFILER_TRIES = 6
 
 
 def device_events(run, expect: dict | None = None) -> tuple[list[tuple[str, float]], float]:
@@ -294,11 +297,13 @@ def device_events(run, expect: dict | None = None) -> tuple[list[tuple[str, floa
     ({substring of a kernel name: events}) the trace must hold exactly that
     many events whose name contains each key. A trace now and then comes back
     with no device events at all, or (the question of PERF.md §7) perhaps
-    short of some kernels; either is recorded and the run profiled again, and
-    a third such trace fails."""
+    short of some kernels, at times several in a row; either is recorded and
+    the run profiled again after a pause that grows by half a second each
+    time, and a sixth such trace fails."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for attempt in range(PROFILER_TRIES):
+        time.sleep(0.5 * attempt)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -317,7 +322,8 @@ def device_events(run, expect: dict | None = None) -> tuple[list[tuple[str, floa
         PROFILER_SHORTFALLS.append(dict(expected=expect or "any", got=counts, events=len(events)))
         log(f"  (torch.profiler trace held {len(events)} device events, {counts} against "
             f"{expect or 'any'}; profiling again)")
-    raise AssertionError(f"torch.profiler: three traces without the expected kernels {expect}")
+    raise AssertionError(f"torch.profiler: {PROFILER_TRIES} traces without the expected "
+                         f"kernels {expect}")
 
 
 def device_ms(fn, iters: int = 20, per_call: dict | None = None) -> float:
@@ -543,6 +549,9 @@ def phase_bwd_kernel(fa) -> dict:
 # bf16 train steps: (image, base width, batch) of the 32-px and 64-px steps
 # and the two 128-px regimes.
 FG_STEPS = [(32, 32, 256), (64, 64, 32), (128, 128, N_128), (128, 32, 8)]
+# ... and of the sampler's bf16 forward (image, base width, n), checked and
+# timed like the steps' shapes but kept out of the per-step sums.
+FG_SAMPLE = [(32, 32, 16)]
 # Kernel vs plain version, max |difference| as a share of the largest entry:
 # the forward repeats the plain version's rounded f32 products and sums in its
 # order, so one bf16 ulp (2^-8) in bf16 and 1e-6 in f32 (erff against torch's
@@ -599,19 +608,21 @@ def fg_times(numel: int, k: int, backward: bool) -> tuple[float, float]:
 def phase_fg_kernel(rs, unet_mod, blocks, config) -> dict:
     """The filtered-GELU kernel pair against its plain version (bf16 and f32,
     forward and backward) and against the conv form, at every distinct
-    filtered-GELU shape of the 32-, 64- and 128-px train steps; bf16 timed
-    with its bound, the plain version and the conv form."""
+    filtered-GELU shape of the 32-, 64- and 128-px train steps and of the
+    n = 16 sampling forward; bf16 timed with its bound, the plain version and
+    the conv form."""
     k = config.filters.kernel_size
     up, down = (torch.from_numpy(t).cuda() for t in blocks.design_taps(config.filters))
-    steps, distinct = {}, {}
-    for px, width, batch in FG_STEPS:
-        shapes = fg_step_shapes(unet_mod, blocks, config, px, width, batch)
-        steps[f"{px}px_w{width}_b{batch}"] = [dict(shape=list(sh), calls=n)
-                                             for sh, n in shapes.items()]
-        for sh in shapes:
-            distinct.setdefault(sh, f"{px}px_w{width}_b{batch}")
-        log(f"  {px}px base width {width} batch {batch}: {sum(shapes.values())} filtered-GELU "
-            f"calls a forward at {len(shapes)} shapes")
+    steps, sampling, distinct = {}, {}, {}
+    for runs, prefix, size in ((steps, "b", FG_STEPS), (sampling, "sample_n", FG_SAMPLE)):
+        for px, width, batch in size:
+            name = f"{px}px_w{width}_{prefix}{batch}"
+            shapes = fg_step_shapes(unet_mod, blocks, config, px, width, batch)
+            runs[name] = [dict(shape=list(sh), calls=n) for sh, n in shapes.items()]
+            for sh in shapes:
+                distinct.setdefault(sh, name)
+            log(f"  {px}px base width {width} batch {batch}: {sum(shapes.values())} "
+                f"filtered-GELU calls a forward at {len(shapes)} shapes")
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows, max_err = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
     max_rel = dict(max_err)
@@ -626,6 +637,8 @@ def phase_fg_kernel(rs, unet_mod, blocks, config) -> dict:
             g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             u, d = up.to(dtype), down.to(dtype)
             y, dx = rs.filtered_gelu_fwd(x, u, d), rs.filtered_gelu_bwd(x, u, d, g)
+            plan = rs.filtered_gelu_fwd.last_plan  # the plan the kernels launched
+            check(rs.filtered_gelu_bwd.last_plan == plan, f"filtered_gelu {shape}: plans differ")
             xg = x.clone().requires_grad_()
             ref = rs.filtered_gelu_phases(xg, u, d)
             (ref_dx,) = torch.autograd.grad(ref, xg, g, retain_graph=True)
@@ -634,6 +647,12 @@ def phase_fg_kernel(rs, unet_mod, blocks, config) -> dict:
             (conv_dx,) = torch.autograd.grad(conv, xc, g, retain_graph=True)
             torch.cuda.synchronize()
             tag = f"{tuple(shape)} {str(dtype)[6:]}"
+            # the bf16 forward repeats the plain version's arithmetic: equal element for element
+            differ = int((y != ref).sum())
+            if dtype == torch.bfloat16:
+                log(f"  {tag:<28} {plan.instantiation} (strips of {plan.rows} x {plan.cols}, "
+                    f"{plan.blocks} blocks): {differ} forward elements differ from the plain version")
+                check(differ == 0, f"filtered_gelu {tag}: {differ} forward elements differ")
             fwd_tol, bwd_tol = FG_REL_TOL[dtype]
             errs = {}
             for name, a, r, tol in (("fwd", y, ref, fwd_tol), ("bwd", dx, ref_dx, bwd_tol),
@@ -647,6 +666,8 @@ def phase_fg_kernel(rs, unet_mod, blocks, config) -> dict:
             max_err[dtype] = max(max_err[dtype], errs["fwd"][0], errs["bwd"][0])
             max_rel[dtype] = max(max_rel[dtype], errs["fwd"][1], errs["bwd"][1])
             row = dict(shape=list(shape), first_step=first, dtype=str(dtype)[6:],
+                       instantiation=plan.instantiation, strip=[plan.rows, plan.cols],
+                       fwd_differ=differ,
                        **{f"err_{n}": e for n, (e, _) in errs.items()},
                        **{f"rel_{n}": r for n, (_, r) in errs.items()})
             if dtype == torch.bfloat16:
@@ -695,7 +716,15 @@ def phase_fg_kernel(rs, unet_mod, blocks, config) -> dict:
             f"{t['fwd_ms'] + t['bwd_ms']:.3f} ms, bound {t['bound_ms']:.3f} ({t['bound_by']}), "
             f"plain {t['plain_fwd_ms'] + t['plain_bwd_ms']:.3f}, conv form "
             f"{t['conv_fwd_ms'] + t['conv_bwd_ms']:.3f}")
-    return dict(rows=rows, steps=steps, per_step=per_step, max_err=max_err, max_rel=max_rel)
+    # per sampling forward: the forward kernel alone
+    per_forward = {}
+    for name, shapes in sampling.items():
+        per_forward[name] = sum(e["calls"] * by_shape[tuple(e["shape"])]["fwd_ms"]
+                                for e in shapes)
+        log(f"  per {name} forward ({sum(e['calls'] for e in shapes)} calls): kernel "
+            f"{per_forward[name]:.3f} ms")
+    return dict(rows=rows, steps=steps, sampling=sampling, per_step=per_step,
+                per_forward=per_forward, max_err=max_err, max_rel=max_rel)
 
 
 def chain_errors(got, ref) -> tuple[float, float, float]:
@@ -1837,7 +1866,7 @@ def main() -> int:
     config = cli.config_from_args(cli.build_parser().parse_args(
         ["sample", "--variant", "3", "--image-size", "32", "--image-channels", "3",
          "--compute-dtype", "bfloat16", "--f-kernel", "3", "--f-beta", "2"]))
-    log("[2e] filtered_gelu pair vs plain version and conv form at the train steps' shapes")
+    log("[2e] filtered_gelu pair vs plain version and conv form at the train steps' and the sampler's shapes")
     fgres = phase_fg_kernel(rs, unet_mod, blocks, config)
     done("filtered_gelu kernels")
     log("[3] full-width Config-D UNet forward and sampler, card vs cpu")
@@ -2004,8 +2033,13 @@ def main() -> int:
         "kernels_per_launch": 1,
         "launches_per_forward": fg,
         "ptxas": [e for e in ptxas if e["library"] == "filtered_gelu"],
+        # the instantiations the kernels launched at the distinct shapes of
+        # the four train steps and the sampling forward
+        "instantiations": sorted({r["instantiation"] for r in fgres["rows"]}),
         "per_step": fgres["per_step"],
         "steps": fgres["steps"],
+        "sampling": fgres["sampling"],
+        "per_sampling_forward_ms": fgres["per_forward"],
         "shapes": fgres["rows"],
         "main_path_runs": train_runs + runs,
     }], "study_path": {k: v for k, v in study.items() if not k.startswith("probe_")},

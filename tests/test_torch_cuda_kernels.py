@@ -152,9 +152,13 @@ def test_bf16_forward_at_head_dim_128(card, b, h, s):
 # (ops/resample.py: filtered_gelu_phases, and autograd of it). The forward
 # repeats the plain version's rounded f32 operations in its order, so it is
 # held to one bf16 ulp (2^-8 of the largest entry) and 1e-6 in f32 (erff
-# against torch's erf); the backward sums in an order of its own and rounds
-# dG and dP to bf16 from values a few f32 ulps apart: 2^-6 in bf16, 2e-5 in
-# f32, of the largest entry.
+# against torch's erf), and in bf16 it must equal the plain version element
+# for element; the backward sums in an order of its own and rounds dG and dP
+# to bf16 from values a few f32 ulps apart: 2^-6 in bf16, 2e-5 in f32, of the
+# largest entry. The shapes reach every instantiation (square planes of side
+# 4 to 128 at k = 3, the generic one at other shapes and k) and its edges:
+# batch 1, plane counts no multiple of a block, the smallest and largest
+# planes.
 FG_TOL = {torch.bfloat16: (2.0**-8, 2.0**-6), torch.float32: (1e-6, 2e-5)}
 
 
@@ -169,6 +173,8 @@ def _fg_taps(card, k, dtype):
 @pytest.mark.parametrize("n,c,h,w,k", [
     (4, 32, 32, 32, 3), (8, 64, 16, 16, 3), (16, 128, 4, 4, 3), (2, 8, 64, 64, 3),
     (3, 5, 9, 40, 3), (2, 4, 12, 7, 5), (2, 3, 6, 6, 7), (3, 2, 1, 1, 7), (2, 2, 5, 5, 1),
+    (1, 3, 4, 4, 3), (3, 5, 4, 4, 3), (3, 7, 8, 8, 3), (1, 5, 16, 16, 3), (1, 3, 64, 64, 3),
+    (1, 2, 128, 128, 3), (2, 3, 32, 32, 5),
 ])
 def test_filtered_gelu_kernels_match_plain_version(card, n, c, h, w, k, dtype):
     from aliasfree_diffusion_models_pytorch_tpu_torch.ops import resample as tr
@@ -182,6 +188,8 @@ def test_filtered_gelu_kernels_match_plain_version(card, n, c, h, w, k, dtype):
     dx = tr.filtered_gelu_bwd(x, up, down, g)
     assert (tr.filtered_gelu_fwd.launches, tr.filtered_gelu_bwd.launches) == (
         before[0] + 1, before[1] + 1)
+    plan = tr.fg_plan(n * c, h, w, k)
+    assert tr.filtered_gelu_fwd.last_plan == plan and tr.filtered_gelu_bwd.last_plan == plan
     xg = x.clone().requires_grad_()
     ref = tr.filtered_gelu_phases(xg, up, down)
     (ref_dx,) = torch.autograd.grad(ref, xg, g)
@@ -190,6 +198,28 @@ def test_filtered_gelu_kernels_match_plain_version(card, n, c, h, w, k, dtype):
         assert a.dtype == dtype and a.shape == r.shape
         err = (a.float() - r.float()).abs().max().item()
         assert err <= tol * r.float().abs().max().item(), (name, err)
+    if dtype == torch.bfloat16:
+        assert torch.equal(y, ref.detach()), int((y != ref).sum())
+
+
+def test_filtered_gelu_misaligned_input_takes_the_generic_kernel(card):
+    """A tensor 2 bytes past a 16-byte boundary cannot take the square-plane
+    instantiation's word loads: the plan names the generic one, which still
+    equals the plain version."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.ops import resample as tr
+
+    flat = torch.randn(2 * 3 * 8 * 8 + 1, device=card).bfloat16()
+    x = flat[1:].view(2, 3, 8, 8)
+    g = torch.randn(2, 3, 8, 8, device=card).bfloat16()
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert tr.fg_plan(6, 8, 8, 3, aligned=False).instantiation == "k3_generic"
+    up, down = _fg_taps(card, 3, torch.bfloat16)
+    assert torch.equal(tr.filtered_gelu_fwd(x, up, down), tr.filtered_gelu_phases(x, up, down))
+    assert tr.filtered_gelu_fwd.last_plan.instantiation == "k3_generic"
+    xg = x.clone().requires_grad_()
+    (ref_dx,) = torch.autograd.grad(tr.filtered_gelu_phases(xg, up, down), xg, g)
+    dx = tr.filtered_gelu_bwd(x, up, down, g)
+    assert (dx.float() - ref_dx.float()).abs().max() <= FG_TOL[torch.bfloat16][1] * ref_dx.float().abs().max()
 
 
 def test_filtered_gelu_autograd_on_the_card_is_the_kernel_pair(card, monkeypatch):
