@@ -617,8 +617,9 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   if (err != cudaSuccess) return err;
   constexpr int kSmem = bwd_smem_bytes<D>();
   if (kSmem > 48 * 1024) {
-    err = cudaFuncSetAttribute(flash_bwd_mma_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    static std::atomic<bool> smem_set[afdm::kMaxDevices];
+    err = afdm::raise_smem_limit_once(reinterpret_cast<const void*>(flash_bwd_mma_kernel<D>),
+                                      kSmem, smem_set, stream);
     if (err != cudaSuccess) return err;
   }
   flash_bwd_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, kSmem, stream>>>(

@@ -19,7 +19,8 @@
 //    padded to an odd number of 16-byte units; ldmatrix gives the B fragments of Kᵀ and
 //    ldmatrix.trans those of V. The buffers are dynamic shared memory: 68 KB at D = 128 (the
 //    128-px UNet's 512-channel blocks), above the 48 KB a static array may take, so that
-//    instantiation raises its limit with cudaFuncSetAttribute before it launches.
+//    instantiation raises its limit with cudaFuncSetAttribute before its first launch on a
+//    device (afdm::raise_smem_limit_once; never while a CUDA graph is being captured).
 //  * Online softmax in the accumulators, in the exp2 domain: scale·log2e is folded into one
 //    FFMA per pair before MUFU.EX2; the row max takes two quad shuffles per tile; the output
 //    accumulators are rescaled once per tile. P is rounded to bf16 in registers and is already
@@ -356,9 +357,9 @@ cudaError_t launch_mma_heads(const void* q, const void* k, const void* v, void* 
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   constexpr int kSmem = 4 * kTileRows * afdm::smem_stride<D>() * static_cast<int>(sizeof(bf16));
   if constexpr (kSmem > 48 * 1024) {
-    // Per device and cheap; set on every launch so that any current device has it.
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<D, kHeads>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    static std::atomic<bool> smem_set[afdm::kMaxDevices];
+    const cudaError_t err = afdm::raise_smem_limit_once(
+        reinterpret_cast<const void*>(flash_fwd_mma_kernel<D, kHeads>), kSmem, smem_set, stream);
     if (err != cudaSuccess) return err;
   }
   flash_fwd_mma_kernel<D, kHeads><<<static_cast<unsigned>(blocks), kThreads, kSmem, stream>>>(

@@ -14,10 +14,36 @@
 
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace afdm {
+
+constexpr int kMaxDevices = 64;
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current device, once per
+// device: the attribute persists, so later launches skip the call. `done` is the calling
+// launcher's own record (one per kernel instantiation). A launch that a CUDA graph captures
+// must not set it, so while `stream` is being captured an unset limit is refused, not set
+// (utils/graphs.py runs every step once eagerly before it captures it).
+inline cudaError_t raise_smem_limit_once(const void* kernel, int bytes,
+                                         std::atomic<bool> (&done)[kMaxDevices],
+                                         cudaStream_t stream) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[device].load(std::memory_order_acquire)) return cudaSuccess;
+  cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
+  err = cudaStreamIsCapturing(stream, &capture);
+  if (err != cudaSuccess) return err;
+  if (capture != cudaStreamCaptureStatusNone) return cudaErrorStreamCaptureUnsupported;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[device].store(true, std::memory_order_release);
+  return err;
+}
 
 // d = a·b + c on the tensor cores: a 16×16 (row-major), b 16×8 (column-major), bf16; c, d 16×8 f32.
 __device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,

@@ -248,7 +248,7 @@ def flash_attention_fwd(q, k, v, scale=None, with_stats=False):
     return (out, m, ssum) if with_stats else out
 
 
-flash_attention_fwd.launches = 0
+kernels.count_launches(flash_attention_fwd)
 
 
 def _check_bwd(q, k, v, out, m, ssum, g) -> None:
@@ -332,7 +332,7 @@ def flash_attention_bwd(q, k, v, out, m, ssum, g, scale=None):
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0
+kernels.count_launches(flash_attention_bwd)
 
 
 class _FlashMHA(torch.autograd.Function):

@@ -149,7 +149,7 @@ def exp_chain(x: torch.Tensor, op: str, chain: int = 16, subtract: bool = True) 
     return out
 
 
-exp_chain.launches = 0
+kernels.count_launches(exp_chain)
 
 QK_HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernel's template instantiations
 QK_QUERY_BLOCK = 128  # queries per block: s must be a multiple
@@ -222,7 +222,7 @@ def qk_rowsum(k: torch.Tensor, qt: torch.Tensor) -> torch.Tensor:
     return out
 
 
-qk_rowsum.launches = 0
+kernels.count_launches(qk_rowsum)
 
 
 def block_diagonal_pack(k: torch.Tensor, qt: torch.Tensor, heads: int):

@@ -49,6 +49,7 @@ __all__ = [
     "upsample2x",
     "filtered_gelu",
     "fg_impl",
+    "fg_impl_override",
     "gelu_exact",
     "phase_terms",
     "filtered_gelu_phases",
@@ -135,15 +136,20 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return (xf * (0.5 + xc * p)).to(x.dtype)
 
 
+def fg_impl_override() -> str | None:
+    """The form ``AFDM_FG_IMPL`` asks for (``conv`` | ``phases``), else None.
+    A captured step keys its CUDA graph on it: the form is fixed at capture."""
+    env = os.environ.get("AFDM_FG_IMPL")
+    return env if env in ("conv", "phases") else None
+
+
 def fg_impl(x: torch.Tensor, k: int, factor: int = 2) -> str:
     """The form :func:`filtered_gelu` takes: ``"phases"`` for a bf16 input
     (the JAX bf16 path's ``precision=None``), ``"conv"`` otherwise, so f32
     keeps the conv form its parity tests were built on; ``AFDM_FG_IMPL``
     (``conv`` | ``phases``) overrides. The phases form needs factor 2, an odd
     k and a 4-D input, as in the JAX package (JAX ``:213-248``)."""
-    env = os.environ.get("AFDM_FG_IMPL")
-    impl = env if env in ("conv", "phases") else (
-        "phases" if x.dtype == torch.bfloat16 else "conv")
+    impl = fg_impl_override() or ("phases" if x.dtype == torch.bfloat16 else "conv")
     if impl == "phases" and factor == 2 and k % 2 == 1 and x.dim() == 4:
         return "phases"
     return "conv"
@@ -357,7 +363,7 @@ def filtered_gelu_fwd(x: torch.Tensor, up_taps, down_taps) -> torch.Tensor:
     return y
 
 
-filtered_gelu_fwd.launches = 0
+kernels.count_launches(filtered_gelu_fwd)
 filtered_gelu_fwd.last_plan = None
 
 
@@ -376,7 +382,7 @@ def filtered_gelu_bwd(x: torch.Tensor, up_taps, down_taps, g: torch.Tensor) -> t
     return dx
 
 
-filtered_gelu_bwd.launches = 0
+kernels.count_launches(filtered_gelu_bwd)
 filtered_gelu_bwd.last_plan = None
 
 
@@ -429,11 +435,23 @@ def resize_matrix_1d(
     return m.astype(dtype)
 
 
+@functools.lru_cache(maxsize=32)
+def _resize_matrix(in_size: int, out_size: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """:func:`resize_matrix_1d` (align_corners) as a tensor on ``device``,
+    made once: a forward that a CUDA graph captures copies nothing from the
+    host. It is made outside inference mode, so that a training forward may
+    save it for its backward. The cached tensor is shared: do not write to it."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(resize_matrix_1d(in_size, out_size, True), dtype=dtype,
+                               device=device)
+
+
 def upsample_bilinear_align_corners(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Bilinear upsample with align_corners=True semantics (NCHW), as two
     separable matrix products — the JAX package's formulation."""
     _, _, h, w = x.shape
-    mh = torch.as_tensor(resize_matrix_1d(h, h * factor, True), dtype=x.dtype, device=x.device)
-    mw = torch.as_tensor(resize_matrix_1d(w, w * factor, True), dtype=x.dtype, device=x.device)
+    mh = _resize_matrix(h, h * factor, x.dtype, x.device)
+    mw = _resize_matrix(w, w * factor, x.dtype, x.device)
     x = torch.einsum("oh,nchw->ncow", mh, x)
     return torch.einsum("pw,ncow->ncop", mw, x)

@@ -1,10 +1,24 @@
-"""Training loop: AdamW + MSE-on-ε, eager PyTorch.
+"""Training loop: AdamW + MSE-on-ε.
 
 Counterpart of ``aliasfree_diffusion_models_pytorch_tpu/train.py``. Per step:
 draw ``t ∈ [1, noise_steps)``, forward-noise the batch, predict the noise
 with the UNet, MSE on the f32 prediction, backward, AdamW update, EMA. Per
 epoch: the mean loss is recorded, ``image_gen_n`` samples are saved as a
 grid, and the checkpoint is written.
+
+The step. The JAX package jits its step into one donated program. Here the
+step reads its inputs from static buffers (batch, labels, ``n_real``, and
+``t``, noise and the CFG keep-mask where they are handed in), one set for
+each batch shape and set of inputs, and on the card runs as a CUDA graph
+(``utils/graphs.py``): forward, backward, the f32 gradient cast, clip, AdamW
+and EMA in one replay. The host chooses the branch (the accumulation
+window's position, which decides between accumulating and updating, and
+whether the EMA copies or blends) and fills the learning rate into the
+optimizer's device tensor before the step; each branch is a graph of its
+own. ``make_train_step(graphs=False)`` runs the same step eagerly. A graphed
+step is bound to the :class:`TrainState` of its first call and to the tensors
+that state holds then: load weights and optimizer state into it before the
+first step, in place (``TrainState.load``, ``utils/checkpoint.load_opt_state``).
 
 Precision. The master parameters, AdamW's moments and the EMA are f32. The
 UNet computes in ``compute_dtype``: before each forward the compute model's
@@ -15,7 +29,10 @@ where it is used. ``torch.autocast`` is not used: its rules for norms and
 softmax differ.
 
 Optimizer. ``torch.optim.AdamW`` with betas 0.9/0.999, eps 1e-8, weight decay
-1e-2 and a constant lr by default. Opt-in through ``TrainConfig``:
+1e-2 and a constant lr by default; on the card it is ``capturable`` (its step
+count and its lr are device tensors, which a replayed update reads), on the
+CPU the plain one with a float lr (PyTorch refuses ``capturable`` there).
+Opt-in through ``TrainConfig``:
 ``lr_schedule="warmup_cosine"`` (linear 0 → lr over ``warmup_steps`` updates,
 cosine down to ``lr·lr_min_ratio`` at ``lr_total_steps``), ``grad_clip``
 (global-norm clip, scale ``clip / max(norm, clip)``, applied to the averaged
@@ -54,6 +71,8 @@ from aliasfree_diffusion_models_pytorch_tpu_torch.config import TrainConfig
 from aliasfree_diffusion_models_pytorch_tpu_torch.data import Dataloader, PrefetchLoader
 from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
 from aliasfree_diffusion_models_pytorch_tpu_torch.models.unet import UNet, build_model, param_count
+from aliasfree_diffusion_models_pytorch_tpu_torch.ops.resample import fg_impl_override
+from aliasfree_diffusion_models_pytorch_tpu_torch.utils.graphs import GraphedStep
 
 logger = logging.getLogger(__name__)
 
@@ -84,11 +103,29 @@ def lr_at(config: TrainConfig, update: int) -> float:
     return config.lr * ((1.0 - config.lr_min_ratio) * cosine + config.lr_min_ratio)
 
 
-def make_optimizer(config: TrainConfig, params) -> torch.optim.AdamW:
+def make_optimizer(config: TrainConfig, params, capturable: bool | None = None
+                   ) -> torch.optim.AdamW:
     """AdamW over ``params`` (f32 tensors that carry ``.grad``) with the
-    reference's hyperparameters; the step sets each update's lr (:func:`lr_at`)."""
-    return torch.optim.AdamW(list(params), lr=config.lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=1e-2)
+    reference's hyperparameters; the step sets each update's lr (:func:`lr_at`).
+    ``capturable`` (default: the params lie on the card) keeps the step count
+    on the device and takes the lr as a device tensor, so that a CUDA graph
+    can replay the update."""
+    params = list(params)
+    if capturable is None:
+        capturable = params[0].device.type == "cuda"
+    lr = (torch.tensor(config.lr, dtype=torch.float32, device=params[0].device)
+          if capturable else config.lr)
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2,
+                             capturable=capturable)
+
+
+def _set_lr(optimizer: torch.optim.Optimizer, value: float) -> None:
+    """The next update's lr: filled into a device lr, set as a float lr."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(value)
+        else:
+            group["lr"] = value
 
 
 def recover_stored_config(config: TrainConfig, root: str = ".") -> TrainConfig:
@@ -189,53 +226,97 @@ def create_train_state(config: TrainConfig, device="cuda",
                              grad_acc=grad_acc)
 
 
-def make_train_step(model: UNet, config: TrainConfig, diffusion: Diffusion) -> Callable:
+class _StepInputs(GraphedStep):
+    """The static buffers of one train-step signature (batch shape and which
+    inputs are given), whose branches ``run(inputs, variant)`` runs eagerly
+    or as CUDA graphs."""
+
+    def __init__(self, batch, labels, n_real, t, noise, keep, device, run, graphs: bool):
+        super().__init__(device, graphs)
+
+        def like(value, dtype):
+            if value is None:
+                return None
+            return torch.empty(tuple(torch.as_tensor(value).shape), dtype=dtype, device=device)
+
+        self.batch = like(batch, batch.dtype)
+        self.labels = like(labels, torch.long)
+        self.n_real = like(n_real, torch.long)
+        self.t = like(t, torch.long)
+        self.noise = like(noise, torch.float32)
+        self.keep = like(keep, torch.float32)
+        self.loss = torch.zeros((), dtype=torch.float32, device=device)
+        self._run = run
+
+    def step(self, variant) -> None:
+        self._run(self, variant)
+
+    def fill(self, batch, labels, n_real, t, noise, keep) -> None:
+        for buf, value in ((self.batch, batch), (self.labels, labels), (self.n_real, n_real),
+                           (self.t, t), (self.noise, noise), (self.keep, keep)):
+            if buf is not None:
+                # A pinned host batch is copied without waiting for the device.
+                buf.copy_(torch.as_tensor(value), non_blocking=True)
+
+
+def make_train_step(model: UNet, config: TrainConfig, diffusion: Diffusion, *,
+                    graphs: bool = True) -> Callable:
     """Build the train step ``(state, batch, generator=None, labels=None,
     n_real=None, *, t=None, noise=None, keep=None) -> (state, loss)``.
 
-    ``batch`` is NHWC f32 on the model's device; ``labels`` (B,) integers for
-    a conditional model; ``n_real`` masks padded duplicates at the end of the
-    batch out of the loss. ``t``, ``noise`` and ``keep`` (the CFG label mask)
-    are drawn from ``generator`` in that order unless given. The state is
-    updated in place and returned; ``loss`` is a 0-dim f32 tensor on the
-    device (no host synchronisation happens in the step).
+    ``batch`` is NHWC f32 on the model's device, or a pinned host tensor;
+    ``labels`` (B,) integers for a conditional model; ``n_real`` masks padded
+    duplicates at the end of the batch out of the loss. ``t``, ``noise`` and
+    ``keep`` (the CFG label mask) are drawn from ``generator`` in that order
+    unless given. Every input is copied into the static buffers of its
+    signature. The state is updated in place and returned; ``loss`` is a 0-dim
+    f32 tensor on the device (no host synchronisation happens in the step).
+    On the card the step runs as CUDA graphs, one for each branch (see the
+    module docstring); ``graphs=False`` runs it eagerly.
     """
     model_params = [p for _, p in model.named_parameters()]
+    device = model_params[0].device
     grad_accum, clip = config.grad_accum, config.grad_clip
     use_ema, ema_beta = config.use_ema, config.ema_beta
     label_dropout = config.label_dropout
+    signatures: dict[tuple, _StepInputs] = {}
+    bound_state: TrainState | None = None  # the state the step reads
 
-    def loss_fn(batch, generator, labels, n_real, t, noise, keep):
+    def loss_fn(inp: _StepInputs, generator):
+        batch = inp.batch
         n = batch.shape[0]
-        if t is None:
-            t = diffusion.sample_timesteps(n, generator)
-        x_t, noise = diffusion.noise_images(batch, t, generator, noise=noise)
-        if labels is None:
+        t = inp.t if inp.t is not None else diffusion.sample_timesteps(n, generator)
+        x_t, noise = diffusion.noise_images(batch, t, generator, noise=inp.noise)
+        if inp.labels is None:
             pred = model(x_t, t)
         elif label_dropout > 0.0:
             # CFG training: drop the conditioning on a per-sample coin flip.
+            keep = inp.keep
             if keep is None:
                 keep = (torch.rand((n,), generator=generator, device=batch.device)
                         >= label_dropout).float()
-            pred = model(x_t, t, labels, keep)
+            pred = model(x_t, t, inp.labels, keep)
         else:
-            pred = model(x_t, t, labels)
+            pred = model(x_t, t, inp.labels)
         per_sample = ((noise - pred.float()) ** 2).mean(dim=(1, 2, 3))
-        if n_real is None:
+        if inp.n_real is None:
             return per_sample.mean()
         # Padded duplicates at the end of the batch are masked out, so every
         # real sample is weighted once.
-        mask = (torch.arange(n, device=batch.device) < n_real).float()
-        return (per_sample * mask).sum() / n_real
+        mask = (torch.arange(n, device=batch.device) < inp.n_real).float()
+        return (per_sample * mask).sum() / inp.n_real
 
-    def step_fn(state: TrainState, batch, generator=None, labels=None, n_real=None, *,
-                t=None, noise=None, keep=None):
+    def run(inp: _StepInputs, variant) -> None:
+        """One micro-batch at ``position`` of the accumulation window; the
+        last position updates, with the EMA copying or blending."""
+        position, ema_copy = variant
+        state = bound_state
         masters = list(state.params.values())
         with torch.no_grad():
             torch._foreach_copy_(model_params, masters)  # f32 masters → compute dtype
         for p in model_params:
             p.grad = None
-        loss = loss_fn(batch, generator, labels, n_real, t, noise, keep)
+        loss = loss_fn(inp, inp.generator)
         loss.backward()
         with torch.no_grad():
             # A parameter the graph never reaches (the label embedding in a step
@@ -243,40 +324,60 @@ def make_train_step(model: UNet, config: TrainConfig, diffusion: Diffusion) -> C
             # acts on it, as it does under optax.
             grads = [torch.zeros_like(m) if p.grad is None else p.grad.float()
                      for p, m in zip(model_params, masters)]
-            emit = True
             if grad_accum > 1:
-                # Running mean over the window: acc += (g − acc) / (mini_step + 1).
+                # Running mean over the window: acc += (g − acc) / (position + 1).
                 torch._foreach_sub_(grads, state.grad_acc)
-                torch._foreach_div_(grads, float(state.mini_step + 1))
+                torch._foreach_div_(grads, float(position + 1))
                 torch._foreach_add_(state.grad_acc, grads)
-                state.mini_step += 1
-                emit = state.mini_step == grad_accum
                 grads = state.grad_acc
-            if emit:
+            if position == grad_accum - 1:
                 if clip is not None:
                     norm = torch.linalg.vector_norm(
                         torch.stack(torch._foreach_norm(grads)))
                     torch._foreach_mul_(grads, clip / torch.clamp(norm, min=clip))
                 for m, g in zip(masters, grads):
                     m.grad = g
-                for group in state.optimizer.param_groups:
-                    group["lr"] = lr_at(config, state.updates)
                 state.optimizer.step()
                 for m in masters:
                     m.grad = None
-                state.updates += 1
                 if grad_accum > 1:
                     torch._foreach_zero_(state.grad_acc)
-                    state.mini_step = 0
                 if use_ema:
                     ema = list(state.ema_params.values())
-                    if state.step < STEP_START_EMA:
+                    if ema_copy:
                         torch._foreach_copy_(ema, masters)
                     else:
                         torch._foreach_mul_(ema, ema_beta)
                         torch._foreach_add_(ema, masters, alpha=1.0 - ema_beta)
+            inp.loss.copy_(loss.detach())
+
+    def step_fn(state: TrainState, batch, generator=None, labels=None, n_real=None, *,
+                t=None, noise=None, keep=None):
+        nonlocal bound_state
+        if state is not bound_state:
+            if any(inp.captured for inp in signatures.values()):
+                raise ValueError("this train step runs as CUDA graphs bound to the TrainState "
+                                 "of its first calls: make a new step for another state")
+            bound_state = state
+        key = (tuple(batch.shape), labels is None, n_real is None, t is None, noise is None,
+               keep is None, fg_impl_override())
+        inp = signatures.get(key)
+        if inp is None:
+            inp = signatures[key] = _StepInputs(batch, labels, n_real, t, noise, keep, device,
+                                                run, graphs)
+        inp.fill(batch, labels, n_real, t, noise, keep)
+        position = state.mini_step if grad_accum > 1 else 0
+        emit = position == grad_accum - 1
+        if emit:
+            _set_lr(state.optimizer, lr_at(config, state.updates))
+        with inp.drawing_from(generator):
+            inp((position, use_ema and emit and state.step < STEP_START_EMA))
+        if grad_accum > 1:
+            state.mini_step = 0 if emit else position + 1
+        if emit:
+            state.updates += 1
         state.step += 1
-        return state, loss.detach()
+        return state, inp.loss.clone()
 
     return step_fn
 
@@ -287,11 +388,11 @@ def step_generator(generator: torch.Generator, seed: int, index: int) -> torch.G
     return generator.manual_seed(((int(seed) + 1) << 32) + int(index))
 
 
-def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+def _staged(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A batch as the step takes it: in pinned host memory for the card (the
+    step copies it into its static buffer without waiting), else on the CPU."""
     tensor = torch.from_numpy(np.ascontiguousarray(array))
-    if device.type == "cuda":
-        return tensor.pin_memory().to(device, non_blocking=True)
-    return tensor.to(device)
+    return tensor.pin_memory() if device.type == "cuda" else tensor
 
 
 def train(
@@ -395,10 +496,10 @@ def train(
             epoch_losses: list[torch.Tensor] = []
             t_start, imgs = time.perf_counter(), 0
             for images, lbls in dataloader:
-                batch = _to_device(images, device)
+                batch = _staged(images, device)
                 labels = None
                 if config.num_classes:
-                    labels = _to_device(np.asarray(lbls, dtype=np.int64), device)
+                    labels = _staged(np.asarray(lbls, dtype=np.int64), device)
                 if profile_dir is not None and run_step == PROFILE_STEPS[0]:
                     profiler = _start_profiler()
                 state, loss = step_fn(

@@ -7,7 +7,14 @@ the source, of every shared header in ``csrc/`` (``*.cuh``) and of the flags,
 so an edited source or header is rebuilt and an unchanged one is reused.
 Nothing is built at import: the first launch builds its kernel,
 and :func:`build` builds several at once (one ``nvcc`` process per source,
-all started together).
+all started together). Nothing is built or loaded while a CUDA graph is
+being captured: :func:`load` raises there (``utils/graphs.py`` runs every
+step once eagerly before it captures it).
+
+Every wrapper that launches a kernel counts its launches in its own
+``launches`` attribute and is listed in :data:`COUNTED`
+(:func:`count_launches`), so that a CUDA graph can add the launches it
+captured once per replay.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import os
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -102,11 +111,26 @@ def build(names=None) -> list[BuildResult]:
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
+# The wrappers whose ``launches`` attribute counts their kernel launches.
+COUNTED: list = []
+
+
+def count_launches(wrapper):
+    """Give ``wrapper`` a launch count of 0 and list it in :data:`COUNTED`."""
+    wrapper.launches = 0
+    COUNTED.append(wrapper)
+    return wrapper
+
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if needed."""
+    """The kernel's shared library, built first if needed. Raises while the
+    current stream is being captured into a CUDA graph: a build or a load
+    must not happen under capture."""
     lib = _LOADED.get(name)
     if lib is None:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"kernel library {name!r} first needed under CUDA graph "
+                               "capture: run the step once eagerly before capturing it")
         path = library_path(name)
         if not path.exists():
             build([name])

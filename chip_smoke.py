@@ -49,7 +49,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 5. drives the sampling path through the CLI's ``sample`` entry point:
    1000-step DDPM at n=16 in bf16 (5994 launches, and the filtered GELU's per
    forward times 999), DDIM-50, DDIM-50 with θ=90 (Config E) and a
-   conditional DDIM-20 with CFG 3.0;
+   conditional DDIM-20 with CFG 3.0 — on the card every sampler and train
+   step below runs as CUDA graphs (``utils/graphs.py``), and the launch
+   counters count the graphs' replays;
 6. drives the training path through the CLI's ``train`` entry point: Config D
    at batch 256 in bf16 on the synthetic dataset, 10 steps (60 forward and 60
    backward launches, falling loss, a checkpoint), ``sample`` from that
@@ -64,6 +66,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    regimes): ms per step, images per second, kernels per step and device busy
    share from torch.profiler, attention and filtered-GELU ms per step, peak
    memory;
+7b. (phase 6b) holds the CUDA graphs against ``graphs=False``, in turns in
+   one run: DDPM-1000, DDIM-50, a CFG DDIM-20 and a 200-step ``shift`` at
+   n=16, 32 px, and the Config-E sampler at 128 px, bit-equal from the same
+   generator with the same launch counts, each one replay's kernels in
+   torch.profiler against what the counters add for it; the four steps of
+   phase 6 and the grid's batch-16 step graphed, eager and eager again (ms
+   per step, device busy, idle share, peak memory; the graphed run's and
+   the two eager runs' mean bf16 parameter differences within 1% of the
+   parameters' movement); the f32 step graphed and eager bit-equal over six
+   steps under deterministic algorithms, and the capturable AdamW against
+   the plain one;
 8. drives the study path through the CLI in a scratch ``--root``: ``probe
    exp`` and ``probe headpack``; ``run`` (the whole ``ddpm_run`` pipeline at
    batch 256, 200 noise steps, 32 generated PNGs); ``rotate`` and ``shift``
@@ -1799,6 +1812,295 @@ def phase_step_time(fa, rs, config) -> list[dict]:
     return results
 
 
+# Phase 6b: graphed against eager, in turns in one run. The samplers of phase
+# 4 (n = 16, bf16, 32 px), the shift sweep's sampler of phase 7 and the
+# Config-E sampler of phase 8 at 128 px: (name, image size, base width,
+# classes, noise steps, n, sampler call, UNet forwards a call).
+GRAPH_SAMPLERS = [
+    ("ddpm1000", 32, 32, None, 1000, 16, lambda d, m, g: d.sample(m, 16, 3, generator=g), 999),
+    ("ddim50", 32, 32, None, 1000, 16,
+     lambda d, m, g: d.sample_ddim(m, 16, 3, generator=g, steps=50), 50),
+    ("ddim20_cfg3", 32, 32, 10, 1000, 16,
+     lambda d, m, g: d.sample_ddim(m, 16, 3, generator=g, steps=20, labels=3, cfg_scale=3.0), 20),
+    ("shift8_200", 32, 32, None, 200, 16,
+     lambda d, m, g: d.sample_shift(m, 16, 3, generator=g, shift=8), 199),
+    ("config_e_128px", 128, 128, None, 50, 4,
+     lambda d, m, g: d.sample(m, 4, 3, generator=g, theta=90.0), 49),
+]
+# Phase 6b's steps: phase 6's, and the grid's D-2N step at its batch of 16
+# (reproduce.py:_build_config: Config D, kernel 3, β 2, bf16, 32 px).
+GRAPH_STEP_CELLS = STEP_CELLS + [(32, 32, 16, 3, 10, ("phases",))]
+# The f32 step held bit-equal graphed against eager (32 px, base width 32),
+# and the capturable AdamW against the plain one: batch, steps.
+GRAPH_F32_STEP = (64, 6)
+# Capturable AdamW (step count and lr on the device, its bias corrections in
+# f32 there) against the plain one (lr and bias corrections in float64 on the
+# host). The first update starts from the same parameters and, under
+# deterministic algorithms, the same gradients. The two updates (each at most
+# lr, 3e-4) differ by 6.4e-6 of their size: β2 = 0.999 rounded to f32 makes
+# 1 − β2 off by 1.3e-5, and √(1 − β2) scales the update; f32 roundings add
+# about 1e-6. So after it every parameter within 1e-5·lr of the plain run's,
+# plus two f32 ulps of the parameter (2^-22 relative) for its own rounding.
+# Later steps see gradients of parameters that differ, and AdamW's
+# normalisation turns that noise in a near-zero gradient into moves of up to
+# lr: after all steps only the bound both obey, 2·lr per update.
+ADAMW_FIRST_RTOL, ADAMW_FIRST_ATOL = 2.0**-22, 1e-5 * 3e-4
+# bf16 steps graphed against eager: dQ's atomics make two eager runs differ
+# from the first rounding that they add in another order, and the graphed
+# run differs from an eager one in the same way. Where that starts varies,
+# so the mean |difference| of two runs after a few steps varies by orders of
+# magnitude from pair to pair, far below the parameters' own movement over
+# those steps. Held: the graphed run's mean difference
+# from an eager run, and the eager runs' own, each within 1% of the eager
+# run's mean movement (the key bias left out: see param_difference). A step
+# that replayed the wrong noise, batch or learning rate moves the parameters
+# elsewhere by a share of their movement itself.
+BF16_STEP_SHARE = 1e-2
+
+
+def _deterministic_algorithms(on: bool) -> None:
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = not on
+
+
+def param_difference(a: dict, b: dict) -> tuple[float, float]:
+    """(mean, max) of |a − b| over every entry of two parameter sets, the key
+    part of each attention's qkv bias left out: softmax ignores a shift of the
+    keys, so its true gradient is 0 and AdamW moves it by about lr a step on
+    rounding noise alone, whatever else the runs share."""
+    total, count, worst = 0.0, 0, 0.0
+    for name, value in a.items():
+        d = (value - b[name]).abs().flatten()
+        if name.endswith(".qkv.bias"):
+            third = d.numel() // 3
+            d = torch.cat([d[:third], d[2 * third:]])
+        total += d.sum().item()
+        count += d.numel()
+        worst = max(worst, d.max().item())
+    return total / count, worst
+
+
+def _free_device_memory() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_graphs(fa, rs, weights, unet_mod, config, fg: int) -> dict:
+    """The samplers and the train steps with CUDA graphs (the default) and
+    with ``graphs=False``, in turns, from the same weights and generator
+    seeds: outputs bit-equal, the same launch counts, one replay's kernels in
+    torch.profiler against the counters' replay count, wall and device time
+    per step, peak memory; the f32 step bit-equal over several steps, the
+    bf16 step within the spread of two eager runs, the capturable AdamW
+    against the plain one."""
+    import dataclasses
+
+    from aliasfree_diffusion_models_pytorch_tpu_torch import diffusion as diffusion_mod
+    from aliasfree_diffusion_models_pytorch_tpu_torch import train as train_mod
+
+    Diffusion = diffusion_mod.Diffusion
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd, rs.filtered_gelu_fwd,
+                rs.filtered_gelu_bwd)
+    results: dict = {"sampling": [], "train": []}
+
+    for name, px, width, classes, steps, n, call, forwards in GRAPH_SAMPLERS:
+        cfg = dataclasses.replace(config, image_size=px, base_width=width, num_classes=classes)
+        model = unet_mod.build_model(cfg, device="cuda", state_dict=weights.init_params(cfg, 0))
+        row = dict(name=name, image=px, n=n, noise_steps=steps, forwards=forwards)
+        outs = {}
+        for mode in ("graphed", "eager"):
+            d = Diffusion(noise_steps=steps, img_size=px, device="cuda",
+                          graphs=mode == "graphed")
+            gen = torch.Generator(device="cuda")
+            if mode == "graphed":  # warm-up and capture; the eager path has nothing to set up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call(d, model, gen.manual_seed(0))
+                torch.cuda.synchronize()
+                row["graphed_first_call_s"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            outs[mode] = call(d, model, gen.manual_seed(1))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = (fa.flash_attention_fwd.launches, rs.filtered_gelu_fwd.launches)
+            check(counts == (6 * forwards, fg * forwards),
+                  f"{name} {mode}: launches (flash_fwd, filtered_gelu) {counts}, expected "
+                  f"{(6 * forwards, fg * forwards)}")
+            row[f"{mode}_s"] = wall
+            row[f"{mode}_ms_per_step"] = wall / forwards * 1e3
+            row["launches"] = counts
+        for a, b in zip(*(o if isinstance(o, tuple) else (o,) for o in outs.values())):
+            check(torch.equal(a, b), f"{name}: graphed and eager outputs differ")
+        # One replay of a captured step under torch.profiler: its kernels
+        # against what the launch counters add for a replay. The step index is
+        # set back to a valid step first (the loop left it past its end).
+        (sampler,) = [s_ for s_ in diffusion_mod._SAMPLERS[model].values()
+                      if s_.graphs and s_.captured]
+        variant = sampler.captured[0]
+
+        def replay():
+            with torch.inference_mode():  # the sampler's buffers are inference tensors
+                sampler.index.fill_(1)
+                sampler(variant)
+
+        before = [c.launches for c in counters]
+        replay()
+        per_replay = [c.launches - b for c, b in zip(counters, before)]
+        check(per_replay == [6, 0, fg, 0], f"{name}: counters add {per_replay} for a replay")
+        events, _ = device_events(replay, {"flash_fwd": 6, "filtered_gelu": fg})
+        row["replay_device_ms"] = sum(us for _, us in events) / 1e3
+        row["replay_kernels"] = len(events)
+        row["replay_counted"] = per_replay
+        results["sampling"].append(row)
+        log(f"  {name} ({px} px, n={n}, {forwards} forwards): graphed {row['graphed_s']:.3f} s "
+            f"({row['graphed_ms_per_step']:.3f} ms a step; first call with warm-up and capture "
+            f"{row['graphed_first_call_s']:.3f} s), eager {row['eager_s']:.3f} s "
+            f"({row['eager_ms_per_step']:.3f} ms a step); bit-equal; launches {counts}; one "
+            f"replay: {row['replay_kernels']} kernels, {row['replay_device_ms']:.3f} ms on the "
+            f"device, counters {per_replay}")
+        del model, sampler, replay, outs
+        _free_device_memory()
+
+    # The steps with the kernel pair: graphed, eager, eager again.
+    for px, width, n, warm, timed, _ in GRAPH_STEP_CELLS:
+        cfg = dataclasses.replace(config, image_size=px, base_width=width, batch_size=n,
+                                  run_name=f"graphs{px}")
+        batch = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (n, px, px, 3)).astype(np.float32)).cuda()
+        row = dict(px=px, base_width=width, batch=n)
+        params = {}
+        for mode in ("graphed", "eager", "eager_again"):
+            # Peak memory counts from what was allocated before this run's
+            # model: what earlier runs left behind is not the run's own.
+            base = torch.cuda.memory_allocated()
+            model, state = train_mod.create_train_state(cfg, device="cuda")
+            if mode == "eager":
+                params["start"] = {k: v.clone() for k, v in state.params.items()}
+            step_fn = train_mod.make_train_step(
+                model, cfg, Diffusion(noise_steps=1000, img_size=px, device="cuda"),
+                graphs=mode == "graphed")
+            gen = torch.Generator(device="cuda")
+
+            def step(st, b, i):
+                return step_fn(st, b, train_mod.step_generator(gen, 0, i))
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(warm):
+                state, loss = step(state, batch, i)
+            loss.item()
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            for i in range(warm, warm + timed):
+                state, loss = step(state, batch, i)
+            final_loss = loss.item()
+            step_ms = (time.perf_counter() - t0) / timed * 1e3
+            counts = [c.launches for c in counters]
+            check(counts == [6 * timed, 6 * timed, fg * timed, fg * timed],
+                  f"{px}px {mode} steps: launches {counts}")
+            check(math.isfinite(final_loss), f"{px}px {mode}: loss {final_loss}")
+            params[mode] = {k: v.clone() for k, v in state.params.items()}
+            entry = dict(step_ms=step_ms,
+                         peak_mem_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                         final_loss=final_loss)
+            if mode != "eager_again":
+                prof = profile_step(lambda st, b: step(st, b, warm + timed), state, batch, fg)
+                entry.update(device_busy_ms=prof["device_busy_ms"],
+                             device_kernels=prof["device_kernels"],
+                             idle_share=1.0 - prof["device_busy_ms"] / step_ms)
+            row[mode] = entry
+            del model, state, step_fn, step
+            _free_device_memory()
+        spread, spread_max = param_difference(params["eager"], params["eager_again"])
+        diff, diff_max = param_difference(params["graphed"], params["eager"])
+        movement, _ = param_difference(params["eager"], params["start"])
+        row.update(eager_spread_mean=spread, eager_spread_max=spread_max,
+                   graphed_vs_eager_mean=diff, graphed_vs_eager_max=diff_max,
+                   eager_movement_mean=movement)
+        check(max(diff, spread) <= BF16_STEP_SHARE * movement,
+              f"{px}px: graphed differs from eager by {diff} (mean), two eager runs by "
+              f"{spread}, against {BF16_STEP_SHARE} of the movement {movement}")
+        results["train"].append(row)
+        g, e = row["graphed"], row["eager"]
+        log(f"  {px}px base width {width} batch {n} bf16: graphed {g['step_ms']:.2f} ms a step "
+            f"(device busy {g['device_busy_ms']:.2f} ms, idle {g['idle_share']:.3f}, "
+            f"{g['device_kernels']} kernels, peak {g['peak_mem_gb']:.2f} GB) against eager "
+            f"{e['step_ms']:.2f} ms (busy {e['device_busy_ms']:.2f}, idle {e['idle_share']:.3f}, "
+            f"{e['device_kernels']} kernels, peak {e['peak_mem_gb']:.2f} GB), eager again "
+            f"{row['eager_again']['step_ms']:.2f} ms; parameters after {warm + timed} steps, mean "
+            f"(max) |difference|: graphed vs eager {diff:.2e} ({diff_max:.2e}), eager vs eager "
+            f"{spread:.2e} ({spread_max:.2e}), eager movement {movement:.2e} (limit "
+            f"{BF16_STEP_SHARE} of it)")
+        del params, batch
+        _free_device_memory()
+
+    # f32 at 32 px: graphed against eager bit for bit, then the capturable
+    # AdamW against the plain one, under deterministic algorithms.
+    batch_n, steps = GRAPH_F32_STEP
+    cfg = dataclasses.replace(config, compute_dtype="float32", batch_size=batch_n)
+    batch = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (batch_n, 32, 32, 3)).astype(np.float32)).cuda()
+    finals = {}
+    _deterministic_algorithms(True)
+    try:
+        for mode in ("graphed", "eager", "plain_adamw"):
+            model, state = train_mod.create_train_state(cfg, device="cuda")
+            if mode == "plain_adamw":
+                state.optimizer = train_mod.make_optimizer(cfg, state.params.values(),
+                                                           capturable=False)
+            step_fn = train_mod.make_train_step(
+                model, cfg, Diffusion(noise_steps=1000, img_size=32, device="cuda"),
+                graphs=mode == "graphed")
+            gen = torch.Generator(device="cuda")
+            losses = []
+            for i in range(steps):
+                state, loss = step_fn(state, batch, train_mod.step_generator(gen, 0, i))
+                losses.append(loss)
+                if i == 0:
+                    first = {k: v.clone() for k, v in state.params.items()}
+            finals[mode] = (torch.stack(losses), {k: v.clone() for k, v in state.params.items()},
+                            state.optimizer.param_groups[0]["capturable"], first)
+            del model, state, step_fn
+            _free_device_memory()
+    finally:
+        _deterministic_algorithms(False)
+    check(finals["graphed"][2] and finals["eager"][2] and not finals["plain_adamw"][2],
+          "f32 steps: the card's optimizer is not capturable")
+    check(torch.equal(finals["graphed"][0], finals["eager"][0]), "f32 step: losses differ")
+    differing = [k for k, v in finals["graphed"][1].items()
+                 if not torch.equal(v, finals["eager"][1][k])]
+    check(not differing, f"f32 step: graphed and eager parameters differ in {differing[:4]}")
+    first_excess, first_max, worst = 0.0, 0.0, 0.0
+    for k, v in finals["eager"][3].items():
+        ref = finals["plain_adamw"][3][k]
+        err = (v - ref).abs()
+        first_max = max(first_max, err.max().item())
+        limit = ADAMW_FIRST_ATOL + ADAMW_FIRST_RTOL * ref.abs()
+        first_excess = max(first_excess, (err / limit).max().item())
+        worst = max(worst, (finals["eager"][1][k] - finals["plain_adamw"][1][k]).abs().max().item())
+    bound_ = 2.0 * cfg.lr * steps
+    check(first_excess <= 1.0, f"capturable AdamW vs plain, first update: {first_excess} of "
+          f"the limit (max |difference| {first_max})")
+    check(worst <= bound_, f"capturable AdamW vs plain after {steps} steps: {worst} > {bound_}")
+    results["f32_step"] = dict(batch=batch_n, steps=steps, bit_equal=True,
+                               adamw_first_update_max=first_max,
+                               adamw_first_update_share_of_limit=first_excess,
+                               adamw_after_steps_max=worst)
+    log(f"  f32 step, 32 px batch {batch_n}, {steps} steps, deterministic algorithms: graphed "
+        f"and eager bit-equal (losses and every parameter); capturable AdamW against the plain "
+        f"one: first update max {first_max:.2e} ({first_excess:.2f} of its limit), "
+        f"after {steps} steps max {worst:.2e} (bound {bound_:.1e})")
+    return results
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1885,6 +2187,9 @@ def main() -> int:
     log("[6] steady-state train step")
     step_rows = phase_step_time(fa, rs, config)
     done("step time")
+    log("[6b] CUDA graphs against eager: the samplers and the train steps")
+    graph_res = phase_graphs(fa, rs, weights, unet_mod, config, fg)
+    done("graphs against eager")
     log("[7] study path: CLI probe, run, rotate, shift, eval; Inception forward")
     study = phase_study(fa, kp, cli)
     done("study path")
@@ -2042,7 +2347,8 @@ def main() -> int:
         "per_sampling_forward_ms": fgres["per_forward"],
         "shapes": fgres["rows"],
         "main_path_runs": train_runs + runs,
-    }], "study_path": {k: v for k, v in study.items() if not k.startswith("probe_")},
+    }], "graphs": graph_res,
+        "study_path": {k: v for k, v in study.items() if not k.startswith("probe_")},
         "grid_path": grid,
         "profiler_shortfalls": PROFILER_SHORTFALLS}
     print(json.dumps(kernels_line), flush=True)
