@@ -14,8 +14,10 @@
     python -m aliasfree_diffusion_models_pytorch_tpu_torch probe headpack --out headpack.json
     python -m aliasfree_diffusion_models_pytorch_tpu_torch reproduce-grid --configs A,D-2N
 
-The flags are the JAX CLI's (``cli.py:_add_common``); the model defaults are
-Config D (variant 3) at 32 px, three channels, bf16. ``train`` writes the
+The flags and their defaults are the JAX CLI's (``cli.py:_add_common``): Config
+A (variant 0) at 32 px, one channel, f32, so the same command line trains and
+samples the same model in both packages. ``--device`` and ``--lr-total-steps``
+are the port's own. ``train`` writes the
 run's ``.npz`` checkpoint (``models/<run_name>/ckpt_<dataset>_<variant>.npz``
 under ``--root``), in the JAX package's layout; with no ``--dataset-path`` it
 trains on the synthetic dataset. ``run`` is the whole experiment pipeline
@@ -45,12 +47,12 @@ from aliasfree_diffusion_models_pytorch_tpu_torch.config import FilterSettings, 
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--variant", type=int, default=3, help="UNet variant 0-4 (Configs A-D + v4)")
+    p.add_argument("--variant", type=int, default=0, help="UNet variant 0-4 (Configs A-D + v4)")
     p.add_argument("--dataset", default="MNIST", help="names the run directory")
     p.add_argument("--image-size", type=int, default=32)
     p.add_argument("--base-width", type=int, default=None,
                    help="base channel width override (default: image-size); multiple of 4")
-    p.add_argument("--image-channels", type=int, default=3)
+    p.add_argument("--image-channels", type=int, default=1)
     p.add_argument("--noise-steps", type=int, default=1000)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--f-kernel", type=int, default=None, help="filter kernel size (enables filters)")
@@ -59,7 +61,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--f-up", type=float, default=None, help="omega_c_up (default pi/2)")
     p.add_argument("--no-normalize-filters", action="store_true",
                    help="expose the README's non-normalized kernel configs")
-    p.add_argument("--compute-dtype", default="bfloat16", choices=["float32", "bfloat16"])
+    p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--use-ema", action="store_true", help="sample with the EMA weights")
     p.add_argument("--root", default=".", help="artifact root directory")
     p.add_argument("--num-classes", type=int, default=None, help="class-conditional model")

@@ -54,17 +54,34 @@
 //  4. cp.async needs 16-byte-aligned rows (a D = 8 bf16 row is 16 bytes); the wrapper raises on a
 //     misaligned tensor.
 //
-// f32: flash_bwd_dq_kernel and flash_bwd_dkv_kernel, the CUDA-core kernels of the first port,
-// unchanged and deterministic: one thread per query row (dQ, and δ) and one per key row (dK, dV),
-// f32 arithmetic throughout, each recomputing P with __expf (two exps per pair). They are the
-// exact path the f32 checks hold against the CPU. A bf16 tensor never reaches them. At D = 128 a
-// thread's three rows of 128 f32 values exceed the register file and spill to local memory:
-// right and slow, off the bf16 main path.
+// f32: two passes on the FMA pipes, each recomputing P, deterministic (no atomics, every sum in
+// a fixed order: a graphed f32 train step and an exact resume are bit-equal because of it). They
+// replace the same TPU kernels for f32 inputs, the port's exact path.
+//  * What bounds it: 10·D FLOPs of FMA per pair in the five products (67 TFLOP/s), plus the
+//    pair's exp and dS. Two passes form S and dP twice (14·D FLOPs a pair, and two exps) because
+//    the one-pass alternative needs dQ partials per key tile, (S/64)·S·D floats a head (8.6 GB at
+//    128-px sa6), or atomics. The first port's kernels (one thread a row, 32-row tiles read one
+//    scalar per FMA) spilled at D >= 64 and reached 2% of the bound at D = 128.
+//  * The dQ pass (flash_bwd_dq_f32_kernel): a block owns 64 queries (32 at D = 128) and streams
+//    K and V tiles by cp.async; it also writes each query's (−m·log2e, 1/Σ, −δ/Σ), δ summed from
+//    g ⊙ out, for the second pass. The dK/dV pass (flash_bwd_dkv_f32_kernel): a block owns 64 or
+//    32 keys and streams Q, g and those constants. Both form S and dP (or Sᵀ and dPᵀ) as register
+//    micro-tiles (attn_f32.cuh), P = 2^(s·scale·log2e − m·log2e) by one FFMA and one EX2, and
+//    dS = P·(dP·(1/Σ) − δ/Σ) by one FFMA and one FMUL; dS (and P/Σ) go through shared memory
+//    and each lane sums D/8 output columns over the tile (staged), so no instantiation spills.
+//  * D <= 16, and D = 32 at S <= 32 (flash_bwd_{dq,dkv}_f32_rows_kernel): a pair costs more in
+//    its exp and dS than in its products, and micro-tiles' logits, dP and accumulators outgrow
+//    the registers that the small depth saves (at S = 16 their 64-row tiles would also stand
+//    three quarters past S); so one row a thread, 64 a block, every lane reading the same
+//    streamed row (a broadcast), tiles of 32 by cp.async, the same folded arithmetic.
+//  Rounding points against the plain version: P from the exp2 domain differs from exp(s − m) in
+//  its last bits; every product sums in another order. Within 2e-5 of the largest entry.
 
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attn_f32.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -72,187 +89,556 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------------------------------
-// f32: the CUDA-core kernels
+// f32: register micro-tiles on the FMA pipes (attn_f32.cuh)
 // ---------------------------------------------------------------------------------------------
 
-constexpr int kRows = 64;  // rows per block, one per thread (queries for dQ, keys for dK/dV)
-constexpr int kTile = 32;  // rows of the other operand per shared-memory tile
+constexpr float kLog2eF32 = 1.4426950408889634f;
 
-template <typename T>
-struct Io;
+// D >= 32: rows a thread (kRI) and columns a thread (kCJ) by pass and depth: a block owns 16·kRI
+// rows (queries in the dQ pass, keys in the dK/dV pass) and streams tiles of 8·kCJ rows of the
+// other operand. Mirrored by ops/flash_attention.py:F32_TILES.
+template <int D>
+struct DqTile;
+template <> struct DqTile<32> { static constexpr int kRI = 4, kCJ = 8; };
+template <> struct DqTile<64> { static constexpr int kRI = 4, kCJ = 8; };
+template <> struct DqTile<128> { static constexpr int kRI = 2, kCJ = 4; };
+template <int D>
+struct DkvTile;
+template <> struct DkvTile<32> { static constexpr int kRI = 4, kCJ = 8; };
+template <> struct DkvTile<64> { static constexpr int kRI = 2, kCJ = 8; };
+template <> struct DkvTile<128> { static constexpr int kRI = 2, kCJ = 4; };
 
-template <>
-struct Io<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        const T* __restrict__ out, const T* __restrict__ g,
-                        const float* __restrict__ m, const float* __restrict__ l,
-                        T* __restrict__ dq, float* __restrict__ delta, int s, int tiles,
-                        float scale) {
-  __shared__ __align__(16) float ks[kTile][D];
-  __shared__ __align__(16) float vs[kTile][D];
-
-  const int bh = blockIdx.x / tiles;
-  const int row = (blockIdx.x % tiles) * kRows + threadIdx.x;
-  const bool valid = row < s;
-  const size_t base = static_cast<size_t>(bh) * s * D;
-  const size_t roff = base + static_cast<size_t>(row) * D;
-  const size_t srow = static_cast<size_t>(bh) * s + row;
-
-  float qr[D];
-  float gr[D];
-  float acc[D];
-  float dl = 0.f;  // δ = Σ_d g·out of this query row
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = valid ? Io<T>::load(q + roff + d) : 0.f;
-    gr[d] = valid ? Io<T>::load(g + roff + d) : 0.f;
-    acc[d] = 0.f;
-    if (valid) dl = fmaf(gr[d], Io<T>::load(out + roff + d), dl);
-  }
-  // A thread past the last row keeps m = 0 and 1/l = 0: its dS is 0·finite, never stored.
-  const float mi = valid ? m[srow] : 0.f;
-  const float inv_l = valid ? 1.f / l[srow] : 0.f;
-  if (valid) delta[srow] = dl;
-
-  for (int k0 = 0; k0 < s; k0 += kTile) {
-    const int nk = min(kTile, s - k0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < kTile * D; i += kRows) {
-      const int j = i / D;
-      const int d = i % D;
-      const size_t off = base + static_cast<size_t>(k0 + j) * D + d;
-      ks[j][d] = j < nk ? Io<T>::load(k + off) : 0.f;
-      vs[j][d] = j < nk ? Io<T>::load(v + off) : 0.f;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < nk; ++j) {  // stops at the last real key: no masked term is formed
-      float dot = 0.f;
-      float dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dot = fmaf(qr[d], ks[j][d], dot);  // the forward's order: the same logits, bit for bit
-        dp = fmaf(gr[d], vs[j][d], dp);
-      }
-      const float p = Io<T>::round(__expf(dot * scale - mi));
-      const float ds = Io<T>::round(p * ((dp - dl) * inv_l));
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, ks[j][d], acc[d]);
-    }
-  }
-
-  if (!valid) return;
-#pragma unroll
-  for (int d = 0; d < D; ++d) Io<T>::store(dq + roff + d, acc[d] * scale);
+// Dynamic shared memory: the dQ pass holds the block's Q and g tiles, two K and two V tiles and
+// dS staged; the dK/dV pass the block's K and V tiles, two Q, two g and two tiles of the query
+// constants, and P/Σ and dS staged.
+template <int D>
+constexpr int dq_f32_smem_bytes() {
+  constexpr int R = 16 * DqTile<D>::kRI, C = 8 * DqTile<D>::kCJ;
+  constexpr int S = afdm::f32::stride<D>();
+  return 4 * (2 * R * S + 4 * C * S + C * afdm::f32::wstride<R>());
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ g,
-                         const float* __restrict__ m, const float* __restrict__ l,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int s, int tiles, float scale) {
-  __shared__ __align__(16) float qs[kTile][D];
-  __shared__ __align__(16) float gs[kTile][D];
-  __shared__ float ms[kTile];   // row max of the forward
-  __shared__ float ils[kTile];  // 1 / Σ of the forward
-  __shared__ float dls[kTile];  // δ from the dQ kernel
+template <int D>
+constexpr int dkv_f32_smem_bytes() {
+  constexpr int R = 16 * DkvTile<D>::kRI, C = 8 * DkvTile<D>::kCJ;
+  constexpr int S = afdm::f32::stride<D>();
+  return 4 * (2 * R * S + 4 * C * S + 2 * 4 * C + 2 * C * afdm::f32::wstride<R>());
+}
 
-  const int bh = blockIdx.x / tiles;
-  const int row = (blockIdx.x % tiles) * kRows + threadIdx.x;
-  const bool valid = row < s;
+// dQ, and per query (m, 1/Σ, δ) for the dK/dV pass: one block per (b·h, 16·kRI queries), looping
+// over tiles of 8·kCJ keys.
+template <int D>
+__global__ void __launch_bounds__(afdm::f32::kThreads, afdm::f32::kMinBlocks)
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ out,
+                            const float* __restrict__ g, const float* __restrict__ m,
+                            const float* __restrict__ l, float* __restrict__ dq,
+                            float4* __restrict__ consts, int s, int row_tiles, float scale,
+                            float scale_log2) {
+  namespace f = afdm::f32;
+  constexpr int RI = DqTile<D>::kRI, CJ = DqTile<D>::kCJ;
+  constexpr int R = 16 * RI, C = 8 * CJ, S = f::stride<D>();
+  constexpr int kO = D / 8;  // this lane's output columns (staged sums)
+  extern __shared__ __align__(16) float f32_smem[];
+  float* qs = f32_smem;        // [R][S] the block's queries
+  float* gs = qs + R * S;      // [R][S] their cotangents
+  float* ks = gs + R * S;      // [2][C][S] K, double-buffered
+  float* vs = ks + 2 * C * S;  // [2][C][S] V
+  float* ws = vs + 2 * C * S;  // [C][R + 4] dS, staged
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = 4 * warp + (lane >> 3), cg = lane & 7;
+  const int bh = blockIdx.x / row_tiles;
+  const int r0 = (blockIdx.x % row_tiles) * R;
   const size_t base = static_cast<size_t>(bh) * s * D;
-  const size_t roff = base + static_cast<size_t>(row) * D;
   const size_t sbase = static_cast<size_t>(bh) * s;
 
-  // A thread past the last key keeps zero rows; what it accumulates is never stored.
-  float kr[D];
-  float vr[D];
-  float dka[D];
-  float dva[D];
+  auto rows_from = [&](const float* x, int first) {
+    return [=](int r) -> const float* {
+      return first + r < s ? x + base + static_cast<size_t>(first + r) * D : nullptr;
+    };
+  };
+  f::load_rows<D>(qs, R, q, rows_from(q, r0));
+  f::load_rows<D>(gs, R, g, rows_from(g, r0));
+  auto load_tile = [&](int buf, int k0) {
+    f::load_rows<D>(ks + buf * C * S, C, k, rows_from(k, k0));
+    f::load_rows<D>(vs + buf * C * S, C, v, rows_from(v, k0));
+  };
+  load_tile(0, 0);
+  afdm::cp_async_commit();
+
+  // Per query row: −m·log2e, 1/Σ and −δ/Σ, with δ = Σ_d g·out (the eight lanes of the row split
+  // the depth into float4 chunks, then add). A row past S keeps zeros: its dS is 0, never stored.
+  float nm[RI], il[RI], nd[RI];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    kr[d] = valid ? Io<T>::load(k + roff + d) : 0.f;
-    vr[d] = valid ? Io<T>::load(v + roff + d) : 0.f;
-    dka[d] = 0.f;
-    dva[d] = 0.f;
+  for (int i = 0; i < RI; ++i) {
+    const int row = r0 + rg + 16 * i;
+    const bool valid = row < s;
+    float part[1] = {0.f};
+    if (valid) {
+      for (int c = cg; c < D / 4; c += 8) {
+        const float4 gv = *reinterpret_cast<const float4*>(g + base + static_cast<size_t>(row) * D + 4 * c);
+        const float4 ov = *reinterpret_cast<const float4*>(out + base + static_cast<size_t>(row) * D + 4 * c);
+        part[0] = fmaf(gv.x, ov.x, part[0]);
+        part[0] = fmaf(gv.y, ov.y, part[0]);
+        part[0] = fmaf(gv.z, ov.z, part[0]);
+        part[0] = fmaf(gv.w, ov.w, part[0]);
+      }
+    }
+    f::row_group_sum(part);
+    nm[i] = valid ? -m[sbase + row] * kLog2eF32 : 0.f;
+    il[i] = valid ? 1.f / l[sbase + row] : 0.f;
+    nd[i] = -part[0] * il[i];
+    if (valid && cg == 0) consts[sbase + row] = make_float4(nm[i], il[i], nd[i], 0.f);
   }
 
-  for (int q0 = 0; q0 < s; q0 += kTile) {
-    const int nq = min(kTile, s - q0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < kTile * D; i += kRows) {
-      const int r = i / D;
-      const int d = i % D;
-      const size_t off = base + static_cast<size_t>(q0 + r) * D + d;
-      qs[r][d] = r < nq ? Io<T>::load(q + off) : 0.f;
-      gs[r][d] = r < nq ? Io<T>::load(g + off) : 0.f;
-    }
-    if (threadIdx.x < kTile) {
-      const int r = threadIdx.x;
-      const bool in = r < nq;
-      ms[r] = in ? m[sbase + q0 + r] : 0.f;
-      ils[r] = in ? 1.f / l[sbase + q0 + r] : 0.f;
-      dls[r] = in ? delta[sbase + q0 + r] : 0.f;
+  float acc[RI][kO];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+#pragma unroll
+    for (int n = 0; n < kO; ++n) acc[i][n] = 0.f;
+  }
+
+  const int n_tiles = (s + C - 1) / C;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_tile((t + 1) & 1, (t + 1) * C);
+      afdm::cp_async_commit();
+      afdm::cp_async_wait<1>();
+    } else {
+      afdm::cp_async_wait<0>();
     }
     __syncthreads();
+    const float* kt = ks + (t & 1) * C * S;
+    const float* vt = vs + (t & 1) * C * S;
 
-    for (int r = 0; r < nq; ++r) {  // stops at the last real query
-      float dot = 0.f;
-      float dp = 0.f;
+    float x[RI][CJ], dp[RI][CJ];  // logits, then dS; g·vᵀ
+    f::dots<D, RI, CJ>(x, qs, kt, rg, cg);
+    f::dots<D, RI, CJ>(dp, gs, vt, rg, cg);
+    const int k0 = t * C;
+    const bool ragged = k0 + C > s;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dot = fmaf(qs[r][d], kr[d], dot);  // the forward's order: the same logits
-        dp = fmaf(gs[r][d], vr[d], dp);
-      }
-      const float p = Io<T>::round(__expf(dot * scale - ms[r]));
-      const float w = p * ils[r];  // dV = Pᵀ·(g/l): the 1/l goes with the weight
-      const float ds = Io<T>::round(p * ((dp - dls[r]) * ils[r]));
+    for (int i = 0; i < RI; ++i) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dva[d] = fmaf(w, gs[r][d], dva[d]);
-        dka[d] = fmaf(ds, qs[r][d], dka[d]);
+      for (int j = 0; j < CJ; ++j) {
+        // P = 2^(q·k·scale·log2e − m·log2e), unnormalised; dS = P·(dP/Σ − δ/Σ).
+        const float p = afdm::ex2(fmaf(x[i][j], scale_log2, nm[i]));
+        x[i][j] = p * fmaf(dp[i][j], il[i], nd[i]);
       }
     }
+    if (ragged) {  // no term of a key past S
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        if (k0 + cg + 8 * j >= s) {
+#pragma unroll
+          for (int i = 0; i < RI; ++i) x[i][j] = 0.f;
+        }
+      }
+    }
+    f::stage<RI, CJ>(ws, x, rg, cg);
+    __syncthreads();
+    f::staged_sums<D, RI, C>(acc, ws, kt, rg, cg);
+    __syncthreads();  // every warp is done with this tile's buffers (and dS) before they refill
   }
 
-  if (!valid) return;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    Io<T>::store(dk + roff + d, dka[d] * scale);
-    Io<T>::store(dv + roff + d, dva[d]);
+  for (int i = 0; i < RI; ++i) {
+    const int row = r0 + rg + 16 * i;
+    if (row >= s) continue;
+    f::store_row<D, true>(dq + base + static_cast<size_t>(row) * D, acc[i], cg,
+                          [&](float a) { return a * scale; });
+  }
+}
+
+// dK and dV: one block per (b·h, 16·kRI keys), looping over tiles of 8·kCJ queries with their
+// constants (m, 1/Σ, δ) from the dQ pass.
+template <int D>
+__global__ void __launch_bounds__(afdm::f32::kThreads, afdm::f32::kMinBlocks)
+    flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ g,
+                             const float4* __restrict__ consts, float* __restrict__ dk,
+                             float* __restrict__ dv, int s, int row_tiles, float scale,
+                             float scale_log2) {
+  namespace f = afdm::f32;
+  constexpr int RI = DkvTile<D>::kRI, CJ = DkvTile<D>::kCJ;
+  constexpr int R = 16 * RI, C = 8 * CJ, S = f::stride<D>();
+  constexpr int kO = D / 8;  // this lane's output columns (staged sums)
+  constexpr int kW = C * f::wstride<R>();
+  extern __shared__ __align__(16) float f32_smem[];
+  float* kss = f32_smem;                                   // [R][S] the block's keys
+  float* vss = kss + R * S;                                // [R][S] their values
+  float* qs = vss + R * S;                                 // [2][C][S] Q, double-buffered
+  float* gs = qs + 2 * C * S;                              // [2][C][S] g
+  float4* cs = reinterpret_cast<float4*>(gs + 2 * C * S);  // [2][C] (m, 1/Σ, δ, 0)
+  float* ws = reinterpret_cast<float*>(cs + 2 * C);        // [2][C][R + 4] P/Σ, dS, staged
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = 4 * warp + (lane >> 3), cg = lane & 7;
+  const int bh = blockIdx.x / row_tiles;
+  const int r0 = (blockIdx.x % row_tiles) * R;
+  const size_t base = static_cast<size_t>(bh) * s * D;
+  const size_t sbase = static_cast<size_t>(bh) * s;
+
+  auto rows_from = [&](const float* x, int first) {
+    return [=](int r) -> const float* {
+      return first + r < s ? x + base + static_cast<size_t>(first + r) * D : nullptr;
+    };
+  };
+  f::load_rows<D>(kss, R, k, rows_from(k, r0));
+  f::load_rows<D>(vss, R, v, rows_from(v, r0));
+  auto load_tile = [&](int buf, int q0) {
+    f::load_rows<D>(qs + buf * C * S, C, q, rows_from(q, q0));
+    f::load_rows<D>(gs + buf * C * S, C, g, rows_from(g, q0));
+    for (int c = threadIdx.x; c < C; c += f::kThreads) {
+      const bool ok = q0 + c < s;
+      afdm::cp_async_16(cs + buf * C + c, consts + sbase + (ok ? q0 + c : 0), ok ? 16 : 0);
+    }
+  };
+  load_tile(0, 0);
+  afdm::cp_async_commit();
+
+  float dka[RI][kO], dva[RI][kO];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+#pragma unroll
+    for (int n = 0; n < kO; ++n) dka[i][n] = dva[i][n] = 0.f;
+  }
+
+  const int n_tiles = (s + C - 1) / C;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_tile((t + 1) & 1, (t + 1) * C);
+      afdm::cp_async_commit();
+      afdm::cp_async_wait<1>();
+    } else {
+      afdm::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* qt = qs + (t & 1) * C * S;
+    const float* gt = gs + (t & 1) * C * S;
+    const float4* ct = cs + (t & 1) * C;
+
+    float x[RI][CJ], y[RI][CJ];  // logits, then P/Σ; v·gᵀ, then dS
+    f::dots<D, RI, CJ>(x, kss, qt, rg, cg);
+    f::dots<D, RI, CJ>(y, vss, gt, rg, cg);
+    const int q0 = t * C;
+    const bool ragged = q0 + C > s;
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      const float4 c = ct[cg + 8 * j];  // −m·log2e, 1/Σ, −δ/Σ of query q0 + cg + 8j
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float p = afdm::ex2(fmaf(x[i][j], scale_log2, c.x));
+        x[i][j] = p * c.y;  // dV = Pᵀ·(g/Σ): the 1/Σ goes with the weight
+        y[i][j] = p * fmaf(y[i][j], c.y, c.z);
+      }
+    }
+    if (ragged) {  // no term of a query past S
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        if (q0 + cg + 8 * j >= s) {
+#pragma unroll
+          for (int i = 0; i < RI; ++i) x[i][j] = y[i][j] = 0.f;
+        }
+      }
+    }
+    f::stage<RI, CJ>(ws, x, rg, cg);
+    f::stage<RI, CJ>(ws + kW, y, rg, cg);
+    __syncthreads();
+    f::staged_sums<D, RI, C>(dva, ws, gt, rg, cg);
+    f::staged_sums<D, RI, C>(dka, ws + kW, qt, rg, cg);
+    __syncthreads();  // every warp is done with this tile's buffers (and P, dS) before they refill
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = r0 + rg + 16 * i;
+    if (row >= s) continue;
+    const size_t off = base + static_cast<size_t>(row) * D;
+    f::store_row<D, true>(dk + off, dka[i], cg, [&](float a) { return a * scale; });
+    f::store_row<D, true>(dv + off, dva[i], cg, [](float a) { return a; });
+  }
+}
+
+// D <= 16, and D = 32 at S <= 32: one row a thread. At these depths a pair costs more in its exp
+// and dS than in its products, and a micro-tile's logits, dP and accumulators outgrow the
+// registers that the depth saves; so every lane of a warp takes the same streamed row, each
+// shared-memory read is a broadcast, and the pair's arithmetic runs once per pair, in
+// registers. Mirrored by ops/flash_attention.py:F32_ROWS.
+constexpr int kRowThreads = 64;  // rows a block, one a thread
+constexpr int kRowTile = 32;     // streamed rows a tile
+
+// Streamed rows in flight: four at D <= 16; one at D = 32, whose rows take 32 registers each.
+template <int D>
+__host__ __device__ constexpr int row_unroll() {
+  return D <= 16 ? 4 : 1;
+}
+
+// Row `row` of a (bh·s, D) array into registers as float4s; zeros where `ok` is false.
+template <int D>
+__device__ __forceinline__ void load_row(float (&r)[D], const float* src, bool ok) {
+#pragma unroll
+  for (int d = 0; d < D; d += 4) {
+    const float4 v = ok ? *reinterpret_cast<const float4*>(src + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+    r[d] = v.x, r[d + 1] = v.y, r[d + 2] = v.z, r[d + 3] = v.w;
   }
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* out,
-                       const void* g, const float* m, const float* l, void* dq, void* dk,
-                       void* dv, float* delta, int bh, int s, float scale, cudaStream_t stream) {
-  using T = float;
-  const int tiles = (s + kRows - 1) / kRows;
+__device__ __forceinline__ void store_row(float* dst, const float (&r)[D], float mul) {
+#pragma unroll
+  for (int d = 0; d < D; d += 4) {
+    *reinterpret_cast<float4*>(dst + d) =
+        make_float4(r[d] * mul, r[d + 1] * mul, r[d + 2] * mul, r[d + 3] * mul);
+  }
+}
+
+// Rows first..first + kRowTile − 1 of x into a [kRowTile][D] tile; zeros past S.
+template <int D>
+__device__ __forceinline__ void load_row_tile(float (*dst)[D], const float* x, size_t base, int first,
+                                              int s) {
+  for (int c = threadIdx.x; c < kRowTile * D / 4; c += kRowThreads) {
+    const int r = c / (D / 4), col = (c % (D / 4)) * 4;
+    const bool ok = first + r < s;
+    afdm::cp_async_16(&dst[r][col], x + base + (ok ? static_cast<size_t>(first + r) * D + col : 0),
+                      ok ? 16 : 0);
+  }
+}
+
+// dQ, and per query (−m·log2e, 1/Σ, −δ/Σ) for the dK/dV pass.
+template <int D>
+__global__ void __launch_bounds__(kRowThreads)
+    flash_bwd_dq_f32_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ out,
+                                 const float* __restrict__ g, const float* __restrict__ m,
+                                 const float* __restrict__ l, float* __restrict__ dq,
+                                 float4* __restrict__ consts, int s, int row_tiles, float scale,
+                                 float scale_log2) {
+  __shared__ __align__(16) float ks[2][kRowTile][D];
+  __shared__ __align__(16) float vs[2][kRowTile][D];
+  const int bh = blockIdx.x / row_tiles;
+  const int row = (blockIdx.x % row_tiles) * kRowThreads + threadIdx.x;
+  const bool valid = row < s;
+  const size_t base = static_cast<size_t>(bh) * s * D;
+  const size_t sbase = static_cast<size_t>(bh) * s;
+  load_row_tile<D>(ks[0], k, base, 0, s);
+  load_row_tile<D>(vs[0], v, base, 0, s);
+  afdm::cp_async_commit();
+
+  // A thread past the last row keeps zeros: its dS is 0·finite, never stored.
+  const size_t roff = base + static_cast<size_t>(valid ? row : 0) * D;
+  float qr[D], gr[D], orow[D], acc[D];
+  load_row<D>(qr, q + roff, valid);
+  load_row<D>(gr, g + roff, valid);
+  load_row<D>(orow, out + roff, valid);
+  float delta = 0.f;  // δ = Σ_d g·out
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    delta = fmaf(gr[d], orow[d], delta);
+    acc[d] = 0.f;
+  }
+  const float nm = valid ? -m[sbase + row] * kLog2eF32 : 0.f;
+  const float il = valid ? 1.f / l[sbase + row] : 0.f;
+  const float nd = -delta * il;
+  if (valid) consts[sbase + row] = make_float4(nm, il, nd, 0.f);
+
+  const int n_tiles = (s + kRowTile - 1) / kRowTile;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_row_tile<D>(ks[(t + 1) & 1], k, base, (t + 1) * kRowTile, s);
+      load_row_tile<D>(vs[(t + 1) & 1], v, base, (t + 1) * kRowTile, s);
+      afdm::cp_async_commit();
+      afdm::cp_async_wait<1>();
+    } else {
+      afdm::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int nk = min(kRowTile, s - t * kRowTile);
+#pragma unroll (row_unroll<D>())
+    for (int j = 0; j < nk; ++j) {  // stops at the last real key: no masked term is formed
+      float kr[D], vr[D];
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(&ks[t & 1][j][d]);
+        const float4 b = *reinterpret_cast<const float4*>(&vs[t & 1][j][d]);
+        kr[d] = a.x, kr[d + 1] = a.y, kr[d + 2] = a.z, kr[d + 3] = a.w;
+        vr[d] = b.x, vr[d + 1] = b.y, vr[d + 2] = b.z, vr[d + 3] = b.w;
+      }
+      float dot = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        dot = fmaf(qr[d], kr[d], dot);
+        dp = fmaf(gr[d], vr[d], dp);
+      }
+      // P = 2^(q·k·scale·log2e − m·log2e), unnormalised; dS = P·(dP/Σ − δ/Σ).
+      const float p = afdm::ex2(fmaf(dot, scale_log2, nm));
+      const float ds = p * fmaf(dp, il, nd);
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, kr[d], acc[d]);
+    }
+    __syncthreads();  // every thread is done with this tile's buffers before they refill
+  }
+  if (valid) store_row<D>(dq + roff, acc, scale);
+}
+
+// dK and dV: each thread one key, over tiles of queries with their constants.
+template <int D>
+__global__ void __launch_bounds__(kRowThreads)
+    flash_bwd_dkv_f32_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ g,
+                                  const float4* __restrict__ consts, float* __restrict__ dk,
+                                  float* __restrict__ dv, int s, int row_tiles, float scale,
+                                  float scale_log2) {
+  __shared__ __align__(16) float qs[2][kRowTile][D];
+  __shared__ __align__(16) float gs[2][kRowTile][D];
+  __shared__ float4 cs[2][kRowTile];
+  const int bh = blockIdx.x / row_tiles;
+  const int row = (blockIdx.x % row_tiles) * kRowThreads + threadIdx.x;
+  const bool valid = row < s;
+  const size_t base = static_cast<size_t>(bh) * s * D;
+  const size_t sbase = static_cast<size_t>(bh) * s;
+  auto load_tile = [&](int buf, int q0) {
+    load_row_tile<D>(qs[buf], q, base, q0, s);
+    load_row_tile<D>(gs[buf], g, base, q0, s);
+    for (int c = threadIdx.x; c < kRowTile; c += kRowThreads) {
+      const bool ok = q0 + c < s;
+      afdm::cp_async_16(&cs[buf][c], consts + sbase + (ok ? q0 + c : 0), ok ? 16 : 0);
+    }
+  };
+  load_tile(0, 0);
+  afdm::cp_async_commit();
+
+  // A thread past the last key keeps zero rows; what it accumulates is never stored.
+  const size_t roff = base + static_cast<size_t>(valid ? row : 0) * D;
+  float kr[D], vr[D], dka[D], dva[D];
+  load_row<D>(kr, k + roff, valid);
+  load_row<D>(vr, v + roff, valid);
+#pragma unroll
+  for (int d = 0; d < D; ++d) dka[d] = dva[d] = 0.f;
+
+  const int n_tiles = (s + kRowTile - 1) / kRowTile;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_tile((t + 1) & 1, (t + 1) * kRowTile);
+      afdm::cp_async_commit();
+      afdm::cp_async_wait<1>();
+    } else {
+      afdm::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int nq = min(kRowTile, s - t * kRowTile);
+#pragma unroll (row_unroll<D>())
+    for (int r = 0; r < nq; ++r) {  // stops at the last real query
+      float qv[D], gv[D];
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(&qs[t & 1][r][d]);
+        const float4 b = *reinterpret_cast<const float4*>(&gs[t & 1][r][d]);
+        qv[d] = a.x, qv[d + 1] = a.y, qv[d + 2] = a.z, qv[d + 3] = a.w;
+        gv[d] = b.x, gv[d + 1] = b.y, gv[d + 2] = b.z, gv[d + 3] = b.w;
+      }
+      const float4 c = cs[t & 1][r];  // −m·log2e, 1/Σ, −δ/Σ
+      float dot = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        dot = fmaf(kr[d], qv[d], dot);
+        dp = fmaf(vr[d], gv[d], dp);
+      }
+      const float p = afdm::ex2(fmaf(dot, scale_log2, c.x));
+      const float w = p * c.y;  // dV = Pᵀ·(g/Σ): the 1/Σ goes with the weight
+      const float ds = p * fmaf(dp, c.y, c.z);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        dva[d] = fmaf(w, gv[d], dva[d]);
+        dka[d] = fmaf(ds, qv[d], dka[d]);
+      }
+    }
+    __syncthreads();  // every thread is done with this tile's buffers before they refill
+  }
+  if (valid) {
+    store_row<D>(dk + roff, dka, scale);
+    store_row<D>(dv + roff, dva, 1.f);
+  }
+}
+
+template <typename Kernel>
+cudaError_t raise_f32_smem(Kernel kernel, int bytes, std::atomic<bool> (&done)[afdm::kMaxDevices],
+                           cudaStream_t stream) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return afdm::raise_smem_limit_once(reinterpret_cast<const void*>(kernel), bytes, done, stream);
+}
+
+template <int D>
+cudaError_t launch_f32_rows(const float* q, const float* k, const float* v, const float* out,
+                            const float* g, const float* m, const float* l, float* dq, float* dk,
+                            float* dv, float4* consts, int bh, int s, float scale,
+                            cudaStream_t stream) {
+  const int tiles = (s + kRowThreads - 1) / kRowThreads;
   const long long blocks = static_cast<long long>(bh) * tiles;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gt = static_cast<const T*>(g);
-  flash_bwd_dq_kernel<T, D><<<static_cast<unsigned>(blocks), kRows, 0, stream>>>(
-      qt, kt, vt, static_cast<const T*>(out), gt, m, l, static_cast<T*>(dq), delta, s, tiles,
-      scale);
-  cudaError_t err = cudaGetLastError();
+  flash_bwd_dq_f32_rows_kernel<D><<<static_cast<unsigned>(blocks), kRowThreads, 0, stream>>>(
+      q, k, v, out, g, m, l, dq, consts, s, tiles, scale, scale * kLog2eF32);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // Same stream: the dK/dV kernel starts after δ is written.
-  flash_bwd_dkv_kernel<T, D><<<static_cast<unsigned>(blocks), kRows, 0, stream>>>(
-      qt, kt, vt, gt, m, l, delta, static_cast<T*>(dk), static_cast<T*>(dv), s, tiles, scale);
+  // Same stream: the dK/dV pass starts after every query's constants are written.
+  flash_bwd_dkv_f32_rows_kernel<D><<<static_cast<unsigned>(blocks), kRowThreads, 0, stream>>>(
+      q, k, v, g, consts, dk, dv, s, tiles, scale, scale * kLog2eF32);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32_tiles(const float* q, const float* k, const float* v, const float* out,
+                             const float* g, const float* m, const float* l, float* dq,
+                             float* dk, float* dv, float4* consts, int bh, int s, float scale,
+                             cudaStream_t stream) {
+  constexpr int kDqRows = 16 * DqTile<D>::kRI, kKvRows = 16 * DkvTile<D>::kRI;
+  constexpr int kDqSmem = dq_f32_smem_bytes<D>(), kKvSmem = dkv_f32_smem_bytes<D>();
+  const int dq_tiles = (s + kDqRows - 1) / kDqRows, kv_tiles = (s + kKvRows - 1) / kKvRows;
+  const long long dq_blocks = static_cast<long long>(bh) * dq_tiles;
+  const long long kv_blocks = static_cast<long long>(bh) * kv_tiles;
+  if (dq_blocks > INT_MAX || kv_blocks > INT_MAX) return cudaErrorInvalidValue;
+  static std::atomic<bool> dq_set[afdm::kMaxDevices], kv_set[afdm::kMaxDevices];
+  cudaError_t err = raise_f32_smem(flash_bwd_dq_f32_kernel<D>, kDqSmem, dq_set, stream);
+  if (err != cudaSuccess) return err;
+  err = raise_f32_smem(flash_bwd_dkv_f32_kernel<D>, kKvSmem, kv_set, stream);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32_kernel<D>
+      <<<static_cast<unsigned>(dq_blocks), afdm::f32::kThreads, kDqSmem, stream>>>(
+          q, k, v, out, g, m, l, dq, consts, s, dq_tiles, scale, scale * kLog2eF32);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // Same stream: the dK/dV pass starts after every query's constants are written.
+  flash_bwd_dkv_f32_kernel<D>
+      <<<static_cast<unsigned>(kv_blocks), afdm::f32::kThreads, kKvSmem, stream>>>(
+          q, k, v, g, consts, dk, dv, s, kv_tiles, scale, scale * kLog2eF32);
+  return cudaGetLastError();
+}
+
+// One row a thread at D <= 16, and at D = 32 where S fits one tile (the micro-tiles' 64 rows
+// would stand mostly past S); register micro-tiles otherwise.
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* out,
+                       const void* g, const float* m, const float* l, void* dq, void* dk,
+                       void* dv, float4* consts, int bh, int s, float scale, cudaStream_t stream) {
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* of = static_cast<const float*>(out);
+  const float* gf = static_cast<const float*>(g);
+  float* dqf = static_cast<float*>(dq);
+  float* dkf = static_cast<float*>(dk);
+  float* dvf = static_cast<float*>(dv);
+  if constexpr (D <= 32) {
+    if (D <= 16 || s <= kRowTile) {
+      return launch_f32_rows<D>(qf, kf, vf, of, gf, m, l, dqf, dkf, dvf, consts, bh, s, scale,
+                                stream);
+    }
+  }
+  if constexpr (D >= 32) {
+    return launch_f32_tiles<D>(qf, kf, vf, of, gf, m, l, dqf, dkf, dvf, consts, bh, s, scale,
+                               stream);
+  }
+  return cudaErrorInvalidValue;  // not reached: D <= 16 takes one row a thread
 }
 
 // ---------------------------------------------------------------------------------------------
@@ -636,9 +1022,10 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 }  // namespace
 
 // q, k, v, out, g (inputs) and dq, dk, dv (outputs): contiguous (bh, s, d) arrays of f32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1), bf16 rows 16-byte aligned. m, l: the forward's (bh, s)
+// (is_bf16 = 0) or bf16 (is_bf16 = 1), 16-byte aligned (cp.async). m, l: the forward's (bh, s)
 // f32 softmax max and sum. Scratch, allocated by the caller (ops/flash_attention.py:bwd_scratch):
-//   f32:  consts = δ, (bh, s) f32; dq_acc and g_scaled null;
+//   f32:  consts (bh, s, 4) f32, per query (m, 1/Σ, δ, 0) from the dQ pass; dq_acc and g_scaled
+//         null;
 //   bf16: consts (bh, s, 4) f32; dq_acc (bh, s, d) f32; g_scaled (bh, s, d) bf16.
 // Launches the kernels on `stream` and returns the first failed launch's cudaError_t (0 on
 // success).
@@ -653,7 +1040,6 @@ extern "C" int afdm_flash_bwd(const void* q, const void* k, const void* v, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* mf = static_cast<const float*>(m);
   const float* lf = static_cast<const float*>(l);
-  float* cf = static_cast<float*>(consts);
   float4* c4 = static_cast<float4*>(consts);
   float* acc = static_cast<float*>(dq_acc);
   bf16* gsc = static_cast<bf16*>(g_scaled);
@@ -662,27 +1048,27 @@ extern "C" int afdm_flash_bwd(const void* q, const void* k, const void* v, const
     case 8:
       err = is_bf16 ? launch_mma<8>(q, k, v, out, g, mf, lf, dq, dk, dv, c4, acc, gsc, bh, s,
                                     scale, st)
-                    : launch_f32<8>(q, k, v, out, g, mf, lf, dq, dk, dv, cf, bh, s, scale, st);
+                    : launch_f32<8>(q, k, v, out, g, mf, lf, dq, dk, dv, c4, bh, s, scale, st);
       break;
     case 16:
       err = is_bf16 ? launch_mma<16>(q, k, v, out, g, mf, lf, dq, dk, dv, c4, acc, gsc, bh, s,
                                      scale, st)
-                    : launch_f32<16>(q, k, v, out, g, mf, lf, dq, dk, dv, cf, bh, s, scale, st);
+                    : launch_f32<16>(q, k, v, out, g, mf, lf, dq, dk, dv, c4, bh, s, scale, st);
       break;
     case 32:
       err = is_bf16 ? launch_mma<32>(q, k, v, out, g, mf, lf, dq, dk, dv, c4, acc, gsc, bh, s,
                                      scale, st)
-                    : launch_f32<32>(q, k, v, out, g, mf, lf, dq, dk, dv, cf, bh, s, scale, st);
+                    : launch_f32<32>(q, k, v, out, g, mf, lf, dq, dk, dv, c4, bh, s, scale, st);
       break;
     case 64:
       err = is_bf16 ? launch_mma<64>(q, k, v, out, g, mf, lf, dq, dk, dv, c4, acc, gsc, bh, s,
                                      scale, st)
-                    : launch_f32<64>(q, k, v, out, g, mf, lf, dq, dk, dv, cf, bh, s, scale, st);
+                    : launch_f32<64>(q, k, v, out, g, mf, lf, dq, dk, dv, c4, bh, s, scale, st);
       break;
     case 128:
       err = is_bf16 ? launch_mma<128>(q, k, v, out, g, mf, lf, dq, dk, dv, c4, acc, gsc, bh, s,
                                       scale, st)
-                    : launch_f32<128>(q, k, v, out, g, mf, lf, dq, dk, dv, cf, bh, s, scale, st);
+                    : launch_f32<128>(q, k, v, out, g, mf, lf, dq, dk, dv, c4, bh, s, scale, st);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -32,16 +32,33 @@
 //    (ops/flash_attention.py:fwd_plan) and checked here. Keys past S get −inf logits; queries
 //    past S are computed from zero rows and never stored.
 //
-// f32: flash_fwd_kernel, the CUDA-core kernel of the first port, unchanged: one thread per query
-// row, f32 arithmetic throughout, __expf. It is the exact path the f32 checks hold against the
-// CPU. A bf16 tensor never reaches it. At D = 128 its row of q and its sums outgrow the registers
-// and spill to local memory: right, and slow.
+// f32: flash_fwd_f32_kernel, register micro-tiles on the FMA pipes (attn_f32.cuh). It replaces
+// the same _fwd_kernel for f32 inputs, the path the JAX package keeps on XLA's HIGHEST-precision
+// einsums and the port's exact path: no TF32, every product and sum in f32.
+//  * What bounds it: 4·D FLOPs of FMA per (query, key) pair against one exp, so the FMA pipes
+//    (67 TFLOP/s) at D >= 16; at D = 8 the pair's softmax arithmetic (scale, max, exp, Σ) costs
+//    about a third of its FMAs. The first port's kernel (one thread a query row, 32-key tiles
+//    read one scalar per FMA, D = 128 spilling) reached 8% of that bound at D = 128.
+//  * Four warps own 64 query rows of one head (two or four heads where S fits half or a quarter);
+//    K and V stream through two shared-memory buffers of 64 keys (32 at D = 128) by cp.async.
+//    Each thread forms a 4 × 8 (4 × 4) tile of Q·Kᵀ from float4 reads, so a value read from
+//    shared memory feeds 4 or 8 FMAs. The eight lanes of a row take its max by three shuffles.
+//    At D <= 16 on a grid of at most 528 such blocks (the sampler's S = 256 blocks at n = 32) a
+//    tile of 32 keys (D = 8) or 32 rows (D = 16) a block instead: three blocks an SM would leave
+//    the second wave three quarters empty.
+//  * The online softmax keeps the first port's arithmetic: the logit scaled after the dot,
+//    alpha = __expf(m − m_new), p = __expf(logit − m_new), Σ of the unrounded p, the division by
+//    Σ last. O += P·V: at D <= 16 each lane sums its own keys into all D outputs (the eight lanes
+//    added at the end); at D >= 32 P goes through shared memory and each lane owns D/8 output
+//    columns, so no instantiation spills (ptxas, chip_smoke phase 1). Stats mode writes m in
+//    natural units and Σ.
 
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "attn_f32.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -49,105 +66,220 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------------------------------
-// f32: the CUDA-core kernel
+// f32: register micro-tiles on the FMA pipes (attn_f32.cuh)
 // ---------------------------------------------------------------------------------------------
 
-constexpr int kBlockQ = 64;  // query rows per block, one per thread
-constexpr int kBlockK = 32;  // keys per shared-memory tile
+// Rows a thread (kRI) and columns a thread (kCJ) by depth: a block owns 16·kRI = 64 queries and
+// streams tiles of 8·kCJ keys. Mirrored by ops/flash_attention.py:F32_TILES.
+template <int D>
+struct FwdTile;
+template <> struct FwdTile<8> { static constexpr int kRI = 4, kCJ = 8; };
+template <> struct FwdTile<16> { static constexpr int kRI = 4, kCJ = 8; };
+template <> struct FwdTile<32> { static constexpr int kRI = 4, kCJ = 8; };
+template <> struct FwdTile<64> { static constexpr int kRI = 4, kCJ = 8; };
+template <> struct FwdTile<128> { static constexpr int kRI = 4, kCJ = 4; };
+// ... and at D <= 16 on a small grid (at most kSmallGrid blocks of 64 queries: the sampler's
+// 256-query blocks at n = 32), where three blocks an SM leave the second wave mostly empty:
+// tiles of fewer rows or keys a block. Mirrored by ops/flash_attention.py:F32_FWD_SMALL_TILES.
+template <int D>
+struct FwdSmallTile;
+template <> struct FwdSmallTile<8> { static constexpr int kRI = 4, kCJ = 4; };
+template <> struct FwdSmallTile<16> { static constexpr int kRI = 2, kCJ = 8; };
+constexpr long long kSmallGrid = 4 * 132;  // four blocks an SM of the H100's 132
 
-template <typename T>
-struct Io;
+// Dynamic shared memory of flash_fwd_f32_kernel<D, *, RI, CJ>: the query tile, two K and two V
+// tiles, and P staged (D >= 32).
+template <int D, int RI, int CJ>
+constexpr int fwd_f32_smem_bytes() {
+  constexpr int R = 16 * RI, C = 8 * CJ;
+  constexpr int S = afdm::f32::stride<D>();
+  return 4 * (R * S + 4 * C * S + (D >= 32 ? C * afdm::f32::wstride<R>() : 0));
+}
 
-template <>
-struct Io<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
+// H (b, h) pairs a block: R / H queries and C / H keys a tile of each.
+template <int D, int H, int RI, int CJ>
+__global__ void __launch_bounds__(afdm::f32::kThreads, afdm::f32::kMinBlocks)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ out,
+                         float* __restrict__ m_out, float* __restrict__ l_out, int bh, int s,
+                         int q_tiles, float scale) {
+  namespace f = afdm::f32;
+  constexpr int R = 16 * RI, C = 8 * CJ, S = f::stride<D>();
+  constexpr bool kStaged = D >= 32;
+  constexpr int kRows = R / H;  // queries of each head in the block
+  constexpr int kKeys = C / H;  // keys of each head in a tile
+  constexpr int kO = kStaged ? D / 8 : D;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* qs = f32_smem;        // [R][S] the block's queries
+  float* ks = qs + R * S;      // [2][C][S] K, double-buffered
+  float* vs = ks + 2 * C * S;  // [2][C][S] V
+  float* ws = vs + 2 * C * S;  // [C][R + 4] P, staged (D >= 32)
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kBlockQ)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
-                     int s, int q_tiles, float scale) {
-  __shared__ __align__(16) float ks[kBlockK][D];
-  __shared__ __align__(16) float vs[kBlockK][D];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = 4 * warp + (lane >> 3), cg = lane & 7;
+  const int head0 = (blockIdx.x / q_tiles) * H;
+  const int q0 = (blockIdx.x % q_tiles) * kRows;
 
-  const int bh = blockIdx.x / q_tiles;
-  const int row = (blockIdx.x % q_tiles) * kBlockQ + threadIdx.x;
-  const bool valid = row < s;
-  const size_t base = static_cast<size_t>(bh) * s * D;
+  // Row r: head head0 + r / kRows, query q0 + r % kRows. Slot c of a tile: head head0 + c / kKeys,
+  // key k0 + c % kKeys. Zeros past S or past B·H.
+  f::load_rows<D>(qs, R, q, [&](int r) -> const float* {
+    const int hh = head0 + r / kRows, qq = q0 + r % kRows;
+    return hh < bh && qq < s ? q + (static_cast<size_t>(hh) * s + qq) * D : nullptr;
+  });
+  auto load_tile = [&](int buf, int k0) {
+    auto slot = [&](const float* x) {
+      return [=](int c) -> const float* {
+        const int hh = head0 + c / kKeys, kk = k0 + c % kKeys;
+        return hh < bh && kk < s ? x + (static_cast<size_t>(hh) * s + kk) * D : nullptr;
+      };
+    };
+    f::load_rows<D>(ks + buf * C * S, C, k, slot(k));
+    f::load_rows<D>(vs + buf * C * S, C, v, slot(v));
+  };
+  load_tile(0, 0);
+  afdm::cp_async_commit();
 
-  float qr[D];
-  float acc[D];
+  float o[RI][kO];
+  float m[RI], l[RI];  // running max of the scaled logits; this lane's share of Σ
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = valid ? Io<T>::load(q + base + static_cast<size_t>(row) * D + d) : 0.f;
-    acc[d] = 0.f;
+  for (int i = 0; i < RI; ++i) {
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < kO; ++n) o[i][n] = 0.f;
   }
-  float m = -CUDART_INF_F;  // running max of the scaled logits
-  float l = 0.f;            // running Σ exp(logit − m), unrounded f32
 
-  for (int k0 = 0; k0 < s; k0 += kBlockK) {
-    const int nk = min(kBlockK, s - k0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < kBlockK * D; i += kBlockQ) {
-      const int j = i / D;
-      const int d = i % D;
-      const size_t off = base + static_cast<size_t>(k0 + j) * D + d;
-      ks[j][d] = j < nk ? Io<T>::load(k + off) : 0.f;
-      vs[j][d] = j < nk ? Io<T>::load(v + off) : 0.f;
+  const int n_tiles = (s + kKeys - 1) / kKeys;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_tile((t + 1) & 1, (t + 1) * kKeys);
+      afdm::cp_async_commit();
+      afdm::cp_async_wait<1>();
+    } else {
+      afdm::cp_async_wait<0>();
     }
     __syncthreads();
+    const float* kt = ks + (t & 1) * C * S;
+    const float* vt = vs + (t & 1) * C * S;
 
-    float sc[kBlockK];
-    float tile_max = -CUDART_INF_F;
+    float x[RI][CJ];  // logits, then p
+    f::dots<D, RI, CJ>(x, qs, kt, rg, cg);
+    const int k0 = t * kKeys;
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      float dot = 0.f;
+    for (int i = 0; i < RI; ++i) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[j][d], dot);
-      sc[j] = j < nk ? dot * scale : -CUDART_INF_F;
-      tile_max = fmaxf(tile_max, sc[j]);
+      for (int j = 0; j < CJ; ++j) x[i][j] = __fmul_rn(x[i][j], scale);
     }
-    const float m_new = fmaxf(m, tile_max);  // finite: the tile holds at least one key
-    const float alpha = __expf(m - m_new);   // 0 on the first tile (m = −inf)
-    l *= alpha;
+    if (H > 1 || k0 + kKeys > s) {  // keys past S, and with several heads a block other heads' keys
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+      for (int i = 0; i < RI; ++i) {
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p = __expf(sc[j] - m_new);  // 0 for a masked key
-      l += p;
-      const float pr = Io<T>::round(p);
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(pr, vs[j][d], acc[d]);
+        for (int j = 0; j < CJ; ++j) {
+          const int c = cg + 8 * j;
+          if (k0 + c % kKeys >= s || (H > 1 && c / kKeys != (rg + 16 * i) / kRows)) {
+            x[i][j] = -CUDART_INF_F;
+          }
+        }
+      }
     }
-    m = m_new;
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) mx = fmaxf(mx, x[i][j]);
+      // Finite: every row has a real key of its head in every tile.
+      const float m_new = fmaxf(m[i], f::row_group_max(mx));
+      const float alpha = __expf(m[i] - m_new);  // 0 on the first tile (m = −inf)
+      l[i] *= alpha;
+#pragma unroll
+      for (int n = 0; n < kO; ++n) o[i][n] *= alpha;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        x[i][j] = __expf(x[i][j] - m_new);  // 0 for a masked key
+        l[i] += x[i][j];
+      }
+    }
+    if constexpr (kStaged) {
+      f::stage<RI, CJ>(ws, x, rg, cg);
+      __syncthreads();
+      f::staged_sums<D, RI, C>(o, ws, vt, rg, cg);
+    } else {
+      f::lane_sums<D, RI, CJ>(o, x, vt, cg);
+    }
+    __syncthreads();  // every warp is done with this tile's buffers (and P) before they refill
   }
 
-  if (!valid) return;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    Io<T>::store(out + base + static_cast<size_t>(row) * D + d, acc[d] / l);
+  for (int i = 0; i < RI; ++i) {
+    float sum[1] = {l[i]};
+    f::row_group_sum(sum);
+    if constexpr (!kStaged) f::row_group_sum(o[i]);
+    const int r = rg + 16 * i;
+    const int hh = head0 + r / kRows, qq = q0 + r % kRows;
+    if (hh >= bh || qq >= s) continue;
+    const size_t row = static_cast<size_t>(hh) * s + qq;
+    const float total = sum[0];
+    f::store_row<D, kStaged>(out + row * D, o[i], cg, [&](float a) { return a / total; });
+    if (m_out != nullptr && cg == 0) {
+      m_out[row] = m[i];
+      l_out[row] = total;
+    }
   }
-  if (m_out != nullptr) {
-    const size_t srow = static_cast<size_t>(bh) * s + row;
-    m_out[srow] = m;
-    l_out[srow] = l;
+}
+
+template <int D, int H, int RI, int CJ>
+cudaError_t launch_f32_heads(const void* q, const void* k, const void* v, void* out, float* m,
+                             float* l, int bh, int s, float scale, cudaStream_t stream) {
+  constexpr int R = 16 * RI;
+  // One head and R query rows a block, or H heads of at most R / H rows (one tile of keys).
+  if (H > 1 && s > R / H) return cudaErrorInvalidValue;
+  const int q_tiles = H > 1 ? 1 : (s + R - 1) / R;
+  const long long blocks = static_cast<long long>((bh + H - 1) / H) * q_tiles;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  constexpr int kSmem = fwd_f32_smem_bytes<D, RI, CJ>();
+  if constexpr (kSmem > 48 * 1024) {
+    static std::atomic<bool> smem_set[afdm::kMaxDevices];
+    const cudaError_t err = afdm::raise_smem_limit_once(
+        reinterpret_cast<const void*>(flash_fwd_f32_kernel<D, H, RI, CJ>), kSmem, smem_set,
+        stream);
+    if (err != cudaSuccess) return err;
+  }
+  flash_fwd_f32_kernel<D, H, RI, CJ>
+      <<<static_cast<unsigned>(blocks), afdm::f32::kThreads, kSmem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out), m, l, bh, s, q_tiles, scale);
+  return cudaGetLastError();
+}
+
+template <int D, int RI, int CJ>
+cudaError_t launch_f32_tile(const void* q, const void* k, const void* v, void* out, float* m,
+                            float* l, int bh, int s, float scale, int heads,
+                            cudaStream_t stream) {
+  if constexpr (D == 128) {
+    if (heads != 1) return cudaErrorInvalidValue;  // one head a block at this depth
+    return launch_f32_heads<D, 1, RI, CJ>(q, k, v, out, m, l, bh, s, scale, stream);
+  } else {
+    switch (heads) {
+      case 1: return launch_f32_heads<D, 1, RI, CJ>(q, k, v, out, m, l, bh, s, scale, stream);
+      case 2: return launch_f32_heads<D, 2, RI, CJ>(q, k, v, out, m, l, bh, s, scale, stream);
+      case 4: return launch_f32_heads<D, 4, RI, CJ>(q, k, v, out, m, l, bh, s, scale, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* m,
-                       float* l, int bh, int s, float scale, cudaStream_t stream) {
-  const int q_tiles = (s + kBlockQ - 1) / kBlockQ;
-  const long long blocks = static_cast<long long>(bh) * q_tiles;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  flash_fwd_kernel<float, D><<<static_cast<unsigned>(blocks), kBlockQ, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), m, l, s, q_tiles, scale);
-  return cudaGetLastError();
+                       float* l, int bh, int s, float scale, int heads, cudaStream_t stream) {
+  if constexpr (D <= 16) {
+    if (static_cast<long long>(bh) * ((s + 63) / 64) <= kSmallGrid) {
+      return launch_f32_tile<D, FwdSmallTile<D>::kRI, FwdSmallTile<D>::kCJ>(
+          q, k, v, out, m, l, bh, s, scale, heads, stream);
+    }
+  }
+  return launch_f32_tile<D, FwdTile<D>::kRI, FwdTile<D>::kCJ>(q, k, v, out, m, l, bh, s, scale,
+                                                               heads, stream);
 }
 
 // ---------------------------------------------------------------------------------------------
@@ -387,16 +519,15 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, f
 
 }  // namespace
 
-// q, k, v, out: contiguous (bh, s, d) arrays of f32 (is_bf16 = 0) or bf16 (is_bf16 = 1), bf16
-// rows 16-byte aligned. m, l: (bh, s) f32 arrays for the softmax max and sum, or both null.
-// heads_per_block: 1, 2 or 4 (bf16 only, 1 at d = 128; 1 for f32), from
-// ops/flash_attention.py:fwd_plan.
+// q, k, v, out: contiguous (bh, s, d) arrays of f32 (is_bf16 = 0) or bf16 (is_bf16 = 1),
+// 16-byte aligned (cp.async). m, l: (bh, s) f32 arrays for the softmax max and sum, or both null.
+// heads_per_block: 1, 2 or 4 (1 at d = 128), from ops/flash_attention.py:fwd_plan (bf16) or
+// f32_plan (f32).
 // Launches on `stream` and returns the launch's cudaError_t (0 on success).
 extern "C" int afdm_flash_fwd(const void* q, const void* k, const void* v, void* out, void* m,
                               void* l, int bh, int s, int d, float scale, int is_bf16,
                               int heads_per_block, void* stream) {
   if (bh < 1 || s < 1 || (m == nullptr) != (l == nullptr)) return cudaErrorInvalidValue;
-  if (!is_bf16 && heads_per_block != 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
@@ -404,19 +535,19 @@ extern "C" int afdm_flash_fwd(const void* q, const void* k, const void* v, void*
   switch (d) {
     case 8:
       return is_bf16 ? launch_mma<8>(q, k, v, out, mf, lf, bh, s, scale, hp, st)
-                     : launch_f32<8>(q, k, v, out, mf, lf, bh, s, scale, st);
+                     : launch_f32<8>(q, k, v, out, mf, lf, bh, s, scale, hp, st);
     case 16:
       return is_bf16 ? launch_mma<16>(q, k, v, out, mf, lf, bh, s, scale, hp, st)
-                     : launch_f32<16>(q, k, v, out, mf, lf, bh, s, scale, st);
+                     : launch_f32<16>(q, k, v, out, mf, lf, bh, s, scale, hp, st);
     case 32:
       return is_bf16 ? launch_mma<32>(q, k, v, out, mf, lf, bh, s, scale, hp, st)
-                     : launch_f32<32>(q, k, v, out, mf, lf, bh, s, scale, st);
+                     : launch_f32<32>(q, k, v, out, mf, lf, bh, s, scale, hp, st);
     case 64:
       return is_bf16 ? launch_mma<64>(q, k, v, out, mf, lf, bh, s, scale, hp, st)
-                     : launch_f32<64>(q, k, v, out, mf, lf, bh, s, scale, st);
+                     : launch_f32<64>(q, k, v, out, mf, lf, bh, s, scale, hp, st);
     case 128:
       return is_bf16 ? launch_mma<128>(q, k, v, out, mf, lf, bh, s, scale, hp, st)
-                     : launch_f32<128>(q, k, v, out, mf, lf, bh, s, scale, st);
+                     : launch_f32<128>(q, k, v, out, mf, lf, bh, s, scale, hp, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -24,12 +24,14 @@ device memory:
 * :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the
   wrappers: a CPU tensor takes the plain version, a CUDA tensor launches
   ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu`` or raises. bf16 runs the
-  tensor-core kernels (``mma.sync``), f32 the CUDA-core kernels of the first
-  port. Each wrapper's ``launches`` attribute counts its calls that reached
-  the card.
-* :func:`fwd_plan` and :func:`bwd_scratch_shapes` are the launch plan the
-  bf16 kernels are given: heads per block of the forward and the backward's
-  scratch arrays, computed here so that the CPU tests reach them.
+  tensor-core kernels (``mma.sync``), f32 deterministic kernels on the FMA
+  pipes (register micro-tiles, ``csrc/attn_f32.cuh``; one row a thread for
+  the backward at small depths). Each wrapper's ``launches`` attribute counts
+  its calls that reached the card.
+* :func:`fwd_plan`, :func:`f32_plan` and :func:`bwd_scratch_shapes` are the
+  launch plans the kernels are given: heads per block of the forward, the
+  f32 kernels' tiles, blocks and shared memory, and the backward's scratch
+  arrays, computed here so that the CPU tests reach them.
 * :func:`flash_mha` ties them into a ``torch.autograd.Function``: stats-mode
   forward when a gradient is needed, fold-mode forward otherwise.
 """
@@ -46,7 +48,8 @@ import torch
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
 
 __all__ = ["attention_reference", "attention_backward_reference", "flash_attention_fwd",
-           "flash_attention_bwd", "flash_mha", "fwd_plan", "bwd_scratch_shapes", "HEAD_DIMS"]
+           "flash_attention_bwd", "flash_mha", "fwd_plan", "f32_plan", "bwd_scratch_shapes",
+           "HEAD_DIMS"]
 
 # The kernels' template instantiations, forward and backward alike: D = 128 is
 # the 128-px UNet's 512-channel blocks (sa2, sa3 at base width 128).
@@ -146,19 +149,136 @@ def fwd_plan(bh: int, s: int, d: int) -> FwdPlan:
                    blocks=-(-bh // heads) * q_tiles)
 
 
+# The f32 kernels. Register micro-tiles (csrc/attn_f32.cuh): by kernel and
+# head depth, rows a thread and columns a thread, (RI, CJ). A block of 128
+# threads owns 16·RI rows and streams tiles of 8·CJ rows of the other operand
+# (the forward and the dQ pass own queries and stream keys; the dK/dV pass
+# owns keys and streams queries). The same table is written out in
+# csrc/flash_fwd.cu (FwdTile) and csrc/flash_bwd.cu (DqTile, DkvTile). The
+# backward at D <= 16, and at D = 32 where S <= 32, takes one row a thread
+# instead (F32_ROWS).
+F32_KERNELS = ("fwd", "bwd_dq", "bwd_dkv")
+F32_TILES = {
+    "fwd": {8: (4, 8), 16: (4, 8), 32: (4, 8), 64: (4, 8), 128: (4, 4)},
+    "bwd_dq": {32: (4, 8), 64: (4, 8), 128: (2, 4)},
+    "bwd_dkv": {32: (4, 8), 64: (2, 8), 128: (2, 4)},
+}
+# The forward at D <= 16 on a small grid: at most F32_SMALL_GRID blocks of 64
+# queries (four an SM of an H100's 132) take these tiles (csrc/flash_fwd.cu:
+# FwdSmallTile, kSmallGrid).
+F32_FWD_SMALL_TILES = {8: (4, 4), 16: (2, 8)}
+F32_SMALL_GRID = 4 * 132
+F32_THREADS = 128
+F32_STAGED_FROM = 32  # depths from which the second product's weights go through shared memory
+# One row a thread (csrc/flash_bwd.cu: kRowThreads, kRowTile): the backward
+# at these depths, and at D = 32 where S fits one tile; 64 rows a block,
+# tiles of 32 streamed rows.
+F32_ROWS = {"depths": (8, 16), "short_depth": 32, "threads": 64, "tile": 32}
+SMEM_DEFAULT = 48 * 1024  # bytes a block takes without cudaFuncSetAttribute
+SMEM_MAX = 227 * 1024     # bytes a block can take on Hopper
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """Launch plan of one f32 kernel (``csrc/attn_f32.cuh`` and its users)."""
+
+    kernel: str           # "fwd", "bwd_dq" or "bwd_dkv"
+    layout: str           # "lane_sums", "staged" (micro-tiles) or "rows" (one row a thread)
+    threads: int          # a block
+    rows_per_thread: int  # micro-tiles: a thread holds rows rg + 16·i, i < RI
+    cols_per_thread: int  # micro-tiles: streamed rows cg + 8·j, j < CJ; rows: the whole tile
+    rows: int             # rows a block owns, shared among `heads`
+    cols: int             # streamed rows a tile, shared among `heads`
+    heads: int            # (b, h) pairs a block (the forward at S <= 32)
+    row_tiles: int        # blocks along the rows of one group of heads
+    blocks: int
+    smem_bytes: int       # shared memory a block
+    raised_smem: bool     # above 48 KB: the launch raises the kernel's limit first
+
+
+def f32_plan(kernel: str, bh: int, s: int, d: int) -> F32Plan:
+    """Launch plan of the f32 ``kernel`` for ``bh`` heads of ``s`` rows of
+    depth ``d``: the tile of :data:`F32_TILES` (or :data:`F32_ROWS`), the
+    blocks of the grid and the shared memory of one block, as the launch in
+    ``csrc/`` computes them.
+
+    The forward takes four (b, h) pairs a block where S fits a quarter of the
+    block's rows, two where it fits half (at D = 128 one), as the bf16 plan
+    does for its 64 rows, so that its rows are real queries; the tile of keys
+    is then shared out among the heads too, and a pair of another head is
+    masked. At D <= 16, where the grid of 64-query blocks is at most
+    :data:`F32_SMALL_GRID`, it takes :data:`F32_FWD_SMALL_TILES`. The backward
+    takes one head a block.
+
+    Shared memory (f32, micro-tile rows padded to D + 4 floats): the
+    forward's query tile, two K and two V tiles and the staged P; the dQ
+    pass's Q and g tiles, two K and two V tiles and the staged dS; the dK/dV
+    pass's K and V tiles, two Q and two g tiles, two tiles of the query
+    constants (−m·log2e, 1/Σ, −δ/Σ) and the staged P/Σ and dS. One row a
+    thread (the backward at D <= 16, and at D = 32 where S <= 32): two tiles
+    of each streamed operand (and of the constants).
+    """
+    if kernel not in F32_KERNELS:
+        raise ValueError(f"f32 kernel {kernel!r} not in {F32_KERNELS}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if bh < 1 or s < 1:
+        raise ValueError(f"empty attention input: bh={bh}, s={s}")
+    if kernel != "fwd" and (d in F32_ROWS["depths"]
+                            or d == F32_ROWS["short_depth"] and s <= F32_ROWS["tile"]):
+        rows, cols = F32_ROWS["threads"], F32_ROWS["tile"]
+        floats = 2 * 2 * cols * d + (2 * 4 * cols if kernel == "bwd_dkv" else 0)
+        return F32Plan(kernel=kernel, layout="rows", threads=rows, rows_per_thread=1,
+                       cols_per_thread=cols, rows=rows, cols=cols, heads=1,
+                       row_tiles=-(-s // rows), blocks=bh * -(-s // rows), smem_bytes=4 * floats,
+                       raised_smem=False)
+    if kernel == "fwd" and d in F32_FWD_SMALL_TILES and bh * -(-s // 64) <= F32_SMALL_GRID:
+        ri, cj = F32_FWD_SMALL_TILES[d]
+    else:
+        ri, cj = F32_TILES[kernel][d]
+    rows, cols = 16 * ri, 8 * cj
+    staged = d >= F32_STAGED_FROM
+    heads = 1
+    if kernel == "fwd" and d != 128:
+        heads = 4 if 4 * s <= rows else 2 if 2 * s <= rows else 1
+    row_tiles = 1 if heads > 1 else -(-s // rows)
+    stride, wstride = d + 4, rows + 4
+    if kernel == "fwd":
+        floats = rows * stride + 4 * cols * stride + (cols * wstride if staged else 0)
+    elif kernel == "bwd_dq":
+        floats = 2 * rows * stride + 4 * cols * stride + cols * wstride
+    else:
+        floats = 2 * rows * stride + 4 * cols * stride + 2 * 4 * cols + 2 * cols * wstride
+    smem = 4 * floats
+    return F32Plan(kernel=kernel, layout="staged" if staged else "lane_sums",
+                   threads=F32_THREADS, rows_per_thread=ri, cols_per_thread=cj, rows=rows,
+                   cols=cols, heads=heads, row_tiles=row_tiles,
+                   blocks=-(-bh // heads) * row_tiles, smem_bytes=smem,
+                   raised_smem=smem > SMEM_DEFAULT)
+
+
 def bwd_scratch_shapes(bh: int, s: int, d: int, dtype: torch.dtype) -> dict:
     """Scratch arrays of one backward launch, name -> (shape, dtype), in the
     order ``afdm_flash_bwd`` takes them. The wrapper allocates them; the
     kernels allocate nothing.
 
-    f32: δ per query. bf16: per query the float4 (−m·log2e, 1/Σ, −δ/Σ, 0),
-    the f32 dQ accumulator that the main kernel adds into with atomics
+    f32: per query the float4 (−m·log2e, 1/Σ, −δ/Σ, 0), written by the dQ
+    pass and read by the dK/dV pass. bf16: per query the float4 (−m·log2e, 1/Σ, −δ/Σ,
+    0), the f32 dQ accumulator that the main kernel adds into with atomics
     (zeroed by the pre-pass), and g/Σ rounded to bf16 (dV's operand).
     """
     if dtype == torch.bfloat16:
         return {"consts": ((bh, s, 4), torch.float32), "dq_acc": ((bh, s, d), torch.float32),
                 "g_scaled": ((bh, s, d), torch.bfloat16)}
-    return {"consts": ((bh, s), torch.float32)}
+    return {"consts": ((bh, s, 4), torch.float32)}
+
+
+def _check_aligned(**tensors) -> None:
+    """Every kernel copies rows into shared memory with 16-byte cp.async."""
+    for name, t in tensors.items():
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name} must be {ALIGN}-byte aligned for the kernels "
+                             "(a view into the middle of a tensor may not be)")
 
 
 def _check_bf16_launch(scale: float, **tensors) -> None:
@@ -166,10 +286,7 @@ def _check_bf16_launch(scale: float, **tensors) -> None:
     cp.async and a positive scale (the row max is taken before scaling)."""
     if not scale > 0:
         raise ValueError(f"the bf16 kernels take a positive scale, got {scale}")
-    for name, t in tensors.items():
-        if t.data_ptr() % ALIGN:
-            raise ValueError(f"{name} must be {ALIGN}-byte aligned for the bf16 kernels "
-                             "(a view into the middle of a tensor may not be)")
+    _check_aligned(**tensors)
 
 
 @functools.cache
@@ -213,9 +330,9 @@ def flash_attention_fwd(q, k, v, scale=None, with_stats=False):
 
     CPU tensors take :func:`attention_reference`. CUDA tensors launch the
     hand-written kernel on the current stream (bf16: the tensor-core kernel
-    with the launch plan of :func:`fwd_plan`; f32: the CUDA-core kernel);
-    anything it cannot take raises. Returns ``out``, or ``(out, m, Σ)`` with
-    ``with_stats``.
+    with the launch plan of :func:`fwd_plan`; f32: the FMA-pipe kernel with
+    that of :func:`f32_plan`); anything it cannot take raises. Returns
+    ``out``, or ``(out, m, Σ)`` with ``with_stats``.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale, with_stats)
@@ -227,6 +344,10 @@ def flash_attention_fwd(q, k, v, scale=None, with_stats=False):
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         _check_bf16_launch(scale, q=q, k=k, v=v)
+        heads = fwd_plan(b * h, s, d).heads_per_block
+    else:
+        _check_aligned(q=q, k=k, v=v)
+        heads = f32_plan("fwd", b * h, s, d).heads
     out = torch.empty_like(q)
     m = ssum = None
     if with_stats:
@@ -238,7 +359,7 @@ def flash_attention_fwd(q, k, v, scale=None, with_stats=False):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             m.data_ptr() if with_stats else None,
             ssum.data_ptr() if with_stats else None,
-            b * h, s, d, scale, int(bf16), fwd_plan(b * h, s, d).heads_per_block if bf16 else 1,
+            b * h, s, d, scale, int(bf16), heads,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -290,9 +411,9 @@ def flash_attention_bwd(q, k, v, out, m, ssum, g, scale=None):
     ``launches`` counts calls that reached the card. A bf16 call runs three
     kernels on the tensor cores (a pre-pass for δ, g/Σ and the zeroed dQ
     scratch; one pass over all (query, key) pairs with one exp each; dQ's
-    cast), an f32 call the two CUDA-core kernels of the first port (dQ with
-    δ, then dK/dV). A call without stats also counts once in
-    ``flash_attention_fwd.launches``.
+    cast), an f32 call two passes on the FMA pipes, each recomputing P
+    (dQ with each query's m, 1/Σ and δ, then dK/dV; :func:`f32_plan`). A call
+    without stats also counts once in ``flash_attention_fwd.launches``.
 
     bf16 dQ is summed with atomics in an order that changes from run to run,
     so it varies in its last bits between runs; bf16 dK, dV and every f32
@@ -313,6 +434,8 @@ def flash_attention_bwd(q, k, v, out, m, ssum, g, scale=None):
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         _check_bf16_launch(scale, q=q, k=k, v=v, out=out, g=g)
+    else:
+        _check_aligned(q=q, k=k, v=v, out=out, g=g)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     scratch = [torch.empty(shape, dtype=dt, device=q.device)
                for shape, dt in bwd_scratch_shapes(b * h, s, d, q.dtype).values()]

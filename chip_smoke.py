@@ -7,19 +7,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
 2. builds every hand-written kernel from ``csrc/`` with nvcc (sm_90a), all
    sources at once (``flash_fwd``, ``flash_bwd``, ``exp_chain``,
    ``qk_rowsum``, ``filtered_gelu``), and prints the build seconds and each
-   kernel's registers and spill bytes from ptxas; the bf16 attention kernels
-   (D = 128 included) and the filtered-GELU pair must spill nothing;
+   kernel's registers and spill bytes from ptxas; every attention kernel,
+   bf16 and f32 (every f32 instantiation must be listed), D = 128 included,
+   and the filtered-GELU pair must spill nothing;
 3. holds each kernel against its plain PyTorch version on the card, in bf16
-   (the tensor-core kernels) and f32 (the CUDA-core kernels), with and
+   (the tensor-core kernels) and f32 (the FMA-pipe kernels: two f32 backward
+   calls must be bit-equal at every shape), with and
    without softmax stats, and times kernel, plain version and the one-call
    PyTorch yardstick (``scaled_dot_product_attention`` and its backward,
-   never called by the port) beside the reckoned bound; a timed kernel's
+   never called by the port, TF32 off, the kernels of its f32 calls named)
+   beside the reckoned bound; a timed kernel's
    profile must hold every kernel of every call (three ``flash_bwd*`` kernels
    a bf16 backward call, two an f32 one) or is taken again:
    the forward at every shape of the sampling path (Config D, image 32, base
    width 32: the six attention blocks at n=16 and at the CFG-doubled n=32;
    image 128, base width 128: the six blocks at n=4, S up to 16384, D up to
-   128, bf16, and f32 where D = 128);
+   128, bf16, and f32 where D = 128 and at S=16384);
    the backward at every shape of the training path (the same six blocks at
    batch 256, the six blocks of the 64-px step at batch 32, S up to 4096, and
    the six of the 128-px step at base width 128 and batch 4: S up to 16384, D
@@ -63,9 +66,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 7. times the steady-state train step (batch 256 at 32 px, then batch 32 at
    64 px, which sends S=4096 through the backward, each with the filtered
    GELU's kernel pair and with ``AFDM_FG_IMPL=conv``; then the two 128-px
-   regimes): ms per step, images per second, kernels per step and device busy
-   share from torch.profiler, attention and filtered-GELU ms per step, peak
-   memory;
+   regimes; then two f32 steps at 32 px: Config A, the JAX CLI's default
+   model, at batch 256, and Config D at batch 64): ms per step, images per
+   second, kernels per step and device busy share from torch.profiler,
+   attention and filtered-GELU ms per step, peak memory;
 7b. (phase 6b) holds the CUDA graphs against ``graphs=False``, in turns in
    one run: DDPM-1000, DDIM-50, a CFG DDIM-20 and a 200-step ``shift`` at
    n=16, 32 px, and the Config-E sampler at 128 px, bit-equal from the same
@@ -144,8 +148,10 @@ HEADS = 4
 # at S=1024, 0.013 at S=16384), so one absolute limit would be loose by orders
 # of magnitude at the long sequences; a relative one is as tight at every S.
 #  f32: both sum the same f32 products, in another order, over up to S terms
-#  (the forward rescales its sums once per 32-key tile, 512 times at S=16384),
-#  and __expf stands against torch.exp (2 ulp) → 2e-5 of the largest entry;
+#  (the forward rescales its sums once per key tile of 64, 32 at D = 128: 256
+#  times at S=16384, and adds the eight lanes' shares of a row at the end; the
+#  backward adds P/Σ and dS tile by tile), and __expf stands against
+#  torch.exp (2 ulp) → 2e-5 of the largest entry;
 #  bf16: kernel and plain version round p (and dS) to bf16 from f32 values
 #  that differ in the last bits (the forward's online softmax rounds against
 #  its running max), so single terms round one bf16 ulp apart, and both round
@@ -153,12 +159,26 @@ HEADS = 4
 #  to, so 2^-6 of the largest entry allows two ulps there and no more.
 REL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0**-6}
 M_ATOL = 1e-5   # row max of identical f32 logits, summation order only
-SUM_RTOL = 1e-4  # Σ rescaled once per 32-key tile: a few f32 roundings per tile
+SUM_RTOL = 1e-4  # Σ rescaled once per key tile (64, or 32 at D = 128): a few f32 roundings a tile
+
+# The f32 kernels' instantiations (csrc/flash_fwd.cu, csrc/flash_bwd.cu), by
+# ptxas's names: the forward <D, heads a block, RI, CJ> at every head depth
+# with 1, 2 or 4 heads (1 at D = 128), at D <= 16 also with its small-grid
+# tile; the dQ and dK/dV passes as micro-tiles at D >= 32 and one row a
+# thread at D <= 32.
+F32_FWD_TILES = {8: [(4, 8), (4, 4)], 16: [(4, 8), (2, 8)], 32: [(4, 8)], 64: [(4, 8)],
+                 128: [(4, 4)]}
+F32_INSTANTIATIONS = (
+    {f"flash_fwd_f32_kernel<{d}, {h}, {ri}, {cj}>" for d, tiles in F32_FWD_TILES.items()
+     for ri, cj in tiles for h in ((1,) if d == 128 else (1, 2, 4))}
+    | {f"flash_bwd_{p}_f32_kernel<{d}>" for p in ("dq", "dkv") for d in (32, 64, 128)}
+    | {f"flash_bwd_{p}_f32_rows_kernel<{d}>" for p in ("dq", "dkv") for d in (8, 16, 32)})
 
 # Kernels one call of the backward wrapper runs, by input dtype
 # (csrc/flash_bwd.cu): bf16 a pre-pass, the tensor-core pass over every
-# (query, key) pair and dQ's cast; f32 the dQ and the dK/dV kernels of the
-# first port. torch.profiler must show all of them for every timed call.
+# (query, key) pair and dQ's cast; f32 the dQ pass (which also writes each
+# query's m, 1/Σ and δ) and the dK/dV pass. torch.profiler must show all of
+# them for every timed call.
 BWD_KERNELS = {torch.bfloat16: 3, torch.float32: 2}
 
 # The 64-px train step (image 64, base width 64, batch 32): (block, S, C).
@@ -350,6 +370,14 @@ def device_ms(fn, iters: int = 20, per_call: dict | None = None) -> float:
     return sum(us for _, us in events) / iters / 1e3
 
 
+def kernel_names(fn) -> list[str]:
+    """The distinct device kernels that one call of ``fn`` runs (torch.profiler):
+    which backend a PyTorch call took."""
+    fn()
+    events, _ = device_events(fn)
+    return sorted({name[:120] for name, _ in events})
+
+
 def errors(got, ref) -> tuple[float, float]:
     """(max |got − ref|, the same as a share of max |ref|)."""
     err = (got.float() - ref.float()).abs().max().item()
@@ -412,20 +440,25 @@ def phase_kernels(fa) -> dict:
                     row[f"{key}ms"] = device_ms(fn, per_call=per_call)
                     row[f"{key}call_ms"] = call_ms(fn)
                 row["bound_ms"], row["bound_by"] = bound([attention_times(n * HEADS, s, d, dtype)])
+                if dtype == torch.float32:
+                    row["library_kernels"] = kernel_names(calls["library_"])
+                    log(f"  {tag:<28} sdpa runs {row['library_kernels']}")
                 rows.append(row)
                 log(f"  {tag:<28} err {err:.1e} ({rel:.1e} of max)  device us:"
                     f" kernel {row['ms'] * 1e3:7.1f} plain {row['plain_ms'] * 1e3:7.1f} sdpa {row['library_ms'] * 1e3:7.1f}"
                     f" bound {row['bound_ms'] * 1e3:6.2f} ({row['bound_by']}) | per call us:"
                     f" kernel {row['call_ms'] * 1e3:6.1f} plain {row['plain_call_ms'] * 1e3:6.1f}"
                     f" sdpa {row['library_call_ms'] * 1e3:6.1f}")
-    # The 128-px sampler's shapes: bf16 at every block, f32 too where D = 128.
-    # The plain version runs at the batch of PLAIN_SS_BYTES (`plain_bh`).
+    # The 128-px sampler's shapes: bf16 at every block, f32 too where D = 128
+    # and at sa6 (S=16384). The plain version runs at the batch of
+    # PLAIN_SS_BYTES (`plain_bh`).
     n = N_128
     for block, s, c in ATTN_SHAPES_128:
         d = c // HEADS
         scale = 1.0 / math.sqrt(d)
         n_plain = max(1, min(n, PLAIN_SS_BYTES // (HEADS * s * s * 4)))
-        for dtype in (torch.bfloat16, torch.float32) if d == 128 else (torch.bfloat16,):
+        f32 = d == 128 or block == "sa6"
+        for dtype in (torch.bfloat16, torch.float32) if f32 else (torch.bfloat16,):
             q, k, v = (torch.randn((n, HEADS, s, d), generator=g, device="cuda").to(dtype)
                        for _ in range(3))
             out_s, m, ssum = fa.flash_attention_fwd(q, k, v, scale, with_stats=True)
@@ -454,6 +487,9 @@ def phase_kernels(fa) -> dict:
                 row[f"{key}ms"] = device_ms(fn, iters=5, per_call=per_call)
                 row[f"{key}call_ms"] = call_ms(fn, iters=10, warmup=1)
             row["bound_ms"], row["bound_by"] = bound([attention_times(n * HEADS, s, d, dtype)])
+            if dtype == torch.float32:
+                row["library_kernels"] = kernel_names(calls["library_"])
+                log(f"  {tag:<34} sdpa runs {row['library_kernels']}")
             rows.append(row)
             log(f"  {tag:<34} err {err:.1e} ({rel:.1e} of max)  device us:"
                 f" kernel {row['ms'] * 1e3:8.1f} plain(bh={row['plain_bh']}) "
@@ -491,7 +527,7 @@ def phase_bwd_kernel(fa) -> dict:
             scale = 1.0 / math.sqrt(d)
             # batch of the comparison with the plain version (see PLAIN_SS_BYTES)
             n_plain = max(1, min(n, PLAIN_SS_BYTES // (HEADS * s * s * 4)))
-            # at 128 px the f32 CUDA-core kernels run where D = 128 and at S=16384
+            # at 128 px the f32 kernels run where D = 128 and at S=16384
             f32 = px < 128 or d == 128 or block == "sa6"
             for dtype in (torch.bfloat16, torch.float32) if f32 else (torch.bfloat16,):
                 q, k, v, g = (torch.randn((n, HEADS, s, d), generator=gen, device="cuda")
@@ -545,6 +581,17 @@ def phase_bwd_kernel(fa) -> dict:
                     row[f"{key}call_ms"] = call_ms(fn, iters=10, warmup=1)
                 row["bound_ms"], row["bound_by"] = bound(
                     [attention_bwd_times(n * HEADS, s, d, dtype)])
+                if dtype == torch.float32:
+                    # deterministic: two calls on the whole batch give the same bits
+                    first, again = (fa.flash_attention_bwd(q, k, v, out, m, ssum, g, scale)
+                                    for _ in range(2))
+                    torch.cuda.synchronize()
+                    row["bit_equal_calls"] = all(torch.equal(a, b) for a, b in zip(first, again))
+                    check(row["bit_equal_calls"], f"{tag}: two f32 backward calls differ")
+                    del first, again
+                    row["library_kernels"] = kernel_names(calls["library_"])
+                    log(f"  {tag:<34} two backward calls bit-equal; sdpa-bwd runs "
+                        f"{row['library_kernels']}")
                 rows.append(row)
                 log(f"  {tag:<34} err dq {errs[0]:.1e} dk {errs[1]:.1e} dv {errs[2]:.1e}"
                     f" (of max: {rels[0]:.1e} {rels[1]:.1e} {rels[2]:.1e}; fwd {fwd_rel:.1e})"
@@ -1542,7 +1589,8 @@ def phase_grid(fa, cli) -> dict:
     mnist_root = os.path.join(root, "mnist_root")
     fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
     t0 = time.perf_counter()
-    check(cli.main(["train", "--dataset", "MNIST", "--dataset-path", csv_path,
+    check(cli.main(["train", "--variant", "3", "--compute-dtype", "bfloat16",
+                    "--dataset", "MNIST", "--dataset-path", csv_path,
                     "--image-channels", "1", "--epochs", "1", "--batch-size", "16",
                     "--image-gen-per-epoch", "0", "--root", mnist_root, "--device", "cuda"]) == 0,
           "train on the MNIST CSV")
@@ -1557,7 +1605,8 @@ def phase_grid(fa, cli) -> dict:
                                 launches=list(counts()), loader_us=time_loader(data, native))
 
     # Exact resume in f32: 2 epochs straight against 1 + a resumed 1.
-    resume_flags = ["train", "--compute-dtype", "float32", "--checkpoint-opt-state",
+    resume_flags = ["train", "--variant", "3", "--image-channels", "3",
+                    "--compute-dtype", "float32", "--checkpoint-opt-state",
                     "--batch-size", "64", "--image-gen-per-epoch", "0", "--dataset", "CIFAR10",
                     "--device", "cuda"]
     straight, split = os.path.join(root, "straight"), os.path.join(root, "split")
@@ -1600,7 +1649,9 @@ def phase_grid(fa, cli) -> dict:
 
     # --profile-dir: 25 steps (512 synthetic images at batch 21), steps 10-19 traced.
     prof_dir = os.path.join(root, "profile")
-    check(cli.main(["train", "--batch-size", "21", "--epochs", "1", "--image-gen-per-epoch", "0",
+    check(cli.main(["train", "--variant", "3", "--image-channels", "3",
+                    "--compute-dtype", "bfloat16",
+                    "--batch-size", "21", "--epochs", "1", "--image-gen-per-epoch", "0",
                     "--dataset", "CIFAR10", "--root", os.path.join(root, "prof_root"),
                     "--profile-dir", prof_dir, "--device", "cuda"]) == 0, "train --profile-dir")
     trace = os.path.join(prof_dir, "trace_DDPM_Uncondtional_CIFAR10_3.json")
@@ -1632,7 +1683,8 @@ def phase_grid(fa, cli) -> dict:
         return operands[-1]
 
     sample_args = cli.build_parser().parse_args(
-        ["sample", "--random-weights", "--image-size", "128", "--theta", "90",
+        ["sample", "--variant", "3", "--image-channels", "3", "--compute-dtype", "bfloat16",
+         "--random-weights", "--image-size", "128", "--theta", "90",
          "--noise-steps", "50", "--n", "4", "--device", "cuda",
          "--out", os.path.join(root, "e128.png")])
     import aliasfree_diffusion_models_pytorch_tpu_torch.diffusion as diffusion_mod
@@ -1709,11 +1761,11 @@ def time_loader(data, native) -> dict:
     return out
 
 
-def profile_step(step, state, batch, fg: int) -> dict:
+def profile_step(step, state, batch, fg: int, dtype=torch.bfloat16) -> dict:
     """Device time and kernel count of one train step (torch.profiler); ``fg``
     filtered-GELU forward (and as many backward) launches a step."""
     events, wall = device_events(lambda: step(state, batch)[1].item(),
-                                 {"flash_fwd": 6, "flash_bwd": 6 * BWD_KERNELS[torch.bfloat16],
+                                 {"flash_fwd": 6, "flash_bwd": 6 * BWD_KERNELS[dtype],
                                   "filtered_gelu": 2 * fg})
     busy = {"total": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0, "filtered_gelu": 0.0}
     by_name: dict[str, list] = {}  # kernel name -> [device us, launches]
@@ -1740,24 +1792,61 @@ def profile_step(step, state, batch, fg: int) -> dict:
 # Phase 6's steps: (image, base width, batch, warm-up steps, timed steps, the
 # filtered-GELU forms to run): 32 px and 64 px with the kernel pair and, in the
 # same run, with AFDM_FG_IMPL=conv; then the two 128-px regimes of
-# benchmarks/train128.py (TRAIN_128).
+# benchmarks/train128.py (TRAIN_128). bf16, Config D.
 STEP_CELLS = [(32, 32, 256, 3, 10, ("phases", "conv")), (64, 64, 32, 2, 5, ("phases", "conv"))] + [
     (128, width, batch, 2, 5, ("phases",)) for _, width, batch in TRAIN_128]
+# ... and the f32 steps at 32 px, graphed like the bf16 ones: (config, variant,
+# batch, warm-up steps, timed steps). Config A (variant 0, no filters) is the
+# JAX CLI's default model. Config D's f32 filtered GELU takes the conv form,
+# whose step held 23.7 GB at batch 256 in bf16 and would hold about twice that
+# in f32, so it runs at batch 64.
+STEP_CELLS_F32 = [("A", 0, 256, 3, 10), ("D", 3, 64, 3, 10)]
+
+
+def time_step(fa, rs, step, state, batch, warm: int, timed: int, dtype) -> tuple:
+    """Steady-state ms per step over ``timed`` steps after ``warm`` (a ``.item()``
+    closes the timed region), the launch counts, and one profiled step."""
+    for _ in range(warm):
+        state, loss = step(state, batch)
+    loss.item()
+    fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+    rs.filtered_gelu_fwd.launches = rs.filtered_gelu_bwd.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, loss = step(state, batch)
+    final_loss = loss.item()  # waits for the device inside the timed region
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    fg = rs.filtered_gelu_fwd.launches // timed
+    check(counts == (6 * timed, 6 * timed), f"steps: launches {counts}")
+    check(rs.filtered_gelu_fwd.launches == rs.filtered_gelu_bwd.launches == fg * timed,
+          f"steps: filtered_gelu launches {rs.filtered_gelu_fwd.launches}, "
+          f"{rs.filtered_gelu_bwd.launches}")
+    check(math.isfinite(final_loss), f"step loss {final_loss}")
+    return step_ms, final_loss, fg, profile_step(step, state, batch, fg, dtype)
 
 
 def phase_step_time(fa, rs, config) -> list[dict]:
     """Steady-state train step on one fixed batch at each STEP_CELLS entry,
-    with each filtered-GELU form it names. A ``.item()`` closes the timed
-    region; peak memory counts from before the warm-up steps."""
+    with each filtered-GELU form it names, then at each STEP_CELLS_F32 entry.
+    Peak memory counts from before the warm-up steps."""
     import dataclasses
 
     from aliasfree_diffusion_models_pytorch_tpu_torch import train as train_mod
     from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
 
+    runs = [(dataclasses.replace(config, image_size=px, base_width=width, batch_size=n,
+                                 run_name=f"bench{px}"), "D", warm, timed, impls)
+            for px, width, n, warm, timed, impls in STEP_CELLS]
+    runs += [(dataclasses.replace(config, image_size=32, base_width=32, batch_size=n,
+                                  variant=variant, filters=config.filters if variant else None,
+                                  compute_dtype="float32", run_name=f"bench32_f32_{name}"),
+              name, warm, timed, (None,))
+             for name, variant, n, warm, timed in STEP_CELLS_F32]
     results = []
-    for px, width, n, warm, timed, impls in STEP_CELLS:
-        cfg = dataclasses.replace(config, image_size=px, base_width=width, batch_size=n,
-                                  run_name=f"bench{px}")
+    for cfg, name, warm, timed, impls in runs:
+        px, width, n = cfg.image_size, cfg.base_width, cfg.batch_size
+        dtype = getattr(torch, cfg.compute_dtype)
         model, state = train_mod.create_train_state(cfg, device="cuda")
         step_fn = train_mod.make_train_step(
             model, cfg, Diffusion(noise_steps=1000, img_size=px, device="cuda"))
@@ -1766,42 +1855,33 @@ def phase_step_time(fa, rs, config) -> list[dict]:
         rng = np.random.default_rng(0)
         batch = torch.from_numpy(rng.standard_normal((n, px, px, 3)).astype(np.float32)).cuda()
         for impl in impls:
-            os.environ["AFDM_FG_IMPL"] = impl
+            if impl is not None:
+                os.environ["AFDM_FG_IMPL"] = impl
             try:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                for _ in range(warm):
-                    state, loss = step(state, batch)
-                loss.item()
-                fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
-                rs.filtered_gelu_fwd.launches = rs.filtered_gelu_bwd.launches = 0
-                t0 = time.perf_counter()
-                for _ in range(timed):
-                    state, loss = step(state, batch)
-                final_loss = loss.item()  # waits for the device inside the timed region
-                step_ms = (time.perf_counter() - t0) / timed * 1e3
-                counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
-                fg = rs.filtered_gelu_fwd.launches // timed
-                check(counts == (6 * timed, 6 * timed), f"{px}px steps: launches {counts}")
-                check(rs.filtered_gelu_fwd.launches == rs.filtered_gelu_bwd.launches == fg * timed
-                      and (fg > 0) == (impl == "phases"),
-                      f"{px}px {impl} steps: filtered_gelu launches "
-                      f"{rs.filtered_gelu_fwd.launches}, {rs.filtered_gelu_bwd.launches}")
-                check(math.isfinite(final_loss), f"{px}px step loss {final_loss}")
-                prof = profile_step(step, state, batch, fg)
+                step_ms, final_loss, fg, prof = time_step(fa, rs, step, state, batch, warm, timed,
+                                                          dtype)
             finally:
-                os.environ.pop("AFDM_FG_IMPL")
-            row = dict(px=px, base_width=width, batch=n, fg_impl=impl, step_ms=step_ms,
+                os.environ.pop("AFDM_FG_IMPL", None)
+            # the kernel pair runs in bf16 under `phases`; f32 takes the conv form
+            check((fg > 0) == (impl == "phases"), f"{px}px {impl}: {fg} filtered_gelu launches")
+            attn_ms = prof["flash_fwd_ms"] + prof["flash_bwd_ms"]
+            row = dict(px=px, base_width=width, batch=n, config=name, dtype=cfg.compute_dtype,
+                       fg_impl=impl or ("conv (f32)" if cfg.filters else "none"), step_ms=step_ms,
                        imgs_per_s=n / step_ms * 1e3,
                        idle_share=1.0 - prof["device_busy_ms"] / step_ms,
+                       attention_share=attn_ms / prof["device_busy_ms"],
                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                        fg_launches_per_step=fg, final_loss=final_loss, **prof)
             results.append(row)
-            log(f"  {px}px base width {width} batch {n} bf16, filtered GELU {impl}: "
+            log(f"  {px}px Config {name} base width {width} batch {n} {cfg.compute_dtype}, "
+                f"filtered GELU {row['fg_impl']}: "
                 f"{step_ms:.2f} ms per step, {row['imgs_per_s']:.1f} images/s, device busy "
                 f"{prof['device_busy_ms']:.2f} ms (idle share {row['idle_share']:.2f}), "
                 f"{prof['device_kernels']} kernels per step, flash_fwd {prof['flash_fwd_ms']:.3f}"
-                f" ms + flash_bwd {prof['flash_bwd_ms']:.3f} ms, filtered_gelu "
+                f" ms + flash_bwd {prof['flash_bwd_ms']:.3f} ms ({row['attention_share']:.3f} of "
+                f"the device time), filtered_gelu "
                 f"{prof['filtered_gelu_ms']:.3f} ms ({fg} + {fg} launches) per step, "
                 f"{prof['depthwise_conv_kernels']} depthwise conv kernels, "
                 f"peak memory {row['peak_mem_gb']:.2f} GB")
@@ -2135,13 +2215,15 @@ def main() -> int:
             ptxas.append(dict(library=r.name, **entry))
             log(f"    {entry['kernel']:<36} {entry['registers']:3d} registers, spill stores "
                 f"{entry['spill_stores']} B, loads {entry['spill_loads']} B")
-    # The bf16 attention kernels (everything of flash_fwd / flash_bwd but the
-    # f32 CUDA-core kernels of the first port, `<float, D>`) keep every value
-    # in registers.
+    # Every attention kernel, bf16 and f32, and the filtered-GELU pair keep
+    # every value in registers; the report holds every f32 instantiation.
     spilled = [e["kernel"] for e in ptxas if e["spill_stores"] + e["spill_loads"] and (
-        e["library"] == "filtered_gelu" or e["library"].startswith("flash_")
-        and "float" not in e["kernel"])]
-    check(not spilled, f"bf16 attention or filtered-GELU kernels spill: {spilled}")
+        e["library"] == "filtered_gelu" or e["library"].startswith("flash_"))]
+    check(not spilled, f"attention or filtered-GELU kernels spill: {spilled}")
+    f32_found = {e["kernel"] for e in ptxas if "_f32_" in e["kernel"]}
+    check(f32_found == F32_INSTANTIATIONS,
+          f"f32 kernels in the ptxas report: {sorted(f32_found)}, expected "
+          f"{sorted(F32_INSTANTIATIONS)}")
 
     log(f"  [build: {time.perf_counter() - t_build:.1f} s]")
     t_phase = time.perf_counter()
@@ -2205,6 +2287,20 @@ def main() -> int:
     bwd_rows = [r for r in bres["rows"] if r["px"] == 32 and r["dtype"] == "bfloat16"]
     bwd_bound, bwd_bound_by = bound(
         [attention_bwd_times(r["bh"], r["s"], r["d"], torch.bfloat16) for r in bwd_rows])
+    # the same calls in f32: the six forward calls at n=16, the six backward
+    # calls of the 32-px step at batch 256
+    main_rows_f32 = [r for r in kres["rows"] if r["n"] == 16 and r["dtype"] == "float32"]
+    bwd_rows_f32 = [r for r in bres["rows"] if r["px"] == 32 and r["dtype"] == "float32"]
+    check(len(main_rows) == len(main_rows_f32) == len(bwd_rows) == len(bwd_rows_f32) == 6,
+          "six attention calls a forward and a backward, in bf16 and f32")
+
+    def f32_sums(rows, times) -> dict:
+        return {"ms_f32": sum(r["ms"] for r in rows),
+                "plain_ms_f32": sum(r["plain_ms"] for r in rows),
+                "bound_ms_f32": bound([times(r["bh"], r["s"], r["d"], torch.float32)
+                                       for r in rows])[0],
+                "library_ms_f32": sum(r["library_ms"] for r in rows)}
+
     fg_step = fgres["per_step"]["32px_w32_b256"]
     kernels_line = {"kernels": [{
         "name": "flash_fwd",
@@ -2219,6 +2315,7 @@ def main() -> int:
         "bound_ms": main_bound,
         "bound_by": main_bound_by,
         "library_ms": sum(r["library_ms"] for r in main_rows),
+        **f32_sums(main_rows_f32, attention_times),
         "max_abs_err_by_dtype": {str(k)[6:]: v for k, v in kres["max_err"].items()},
         # largest error of a check as a share of its tensor's largest entry,
         # and the limit it was held to
@@ -2249,12 +2346,14 @@ def main() -> int:
         "bound_ms": bwd_bound,
         "bound_by": bwd_bound_by,
         "library_ms": sum(r["library_ms"] for r in bwd_rows),
+        **f32_sums(bwd_rows_f32, attention_bwd_times),
         "max_abs_err_by_dtype": {str(k)[6:]: v for k, v in bres["max_err"].items()},
         "max_rel_err_by_dtype": {str(k)[6:]: v for k, v in bres["max_rel"].items()},
         "rel_tol_by_dtype": {str(k)[6:]: v for k, v in REL_TOL.items()},
         # "launches" counts calls of the wrapper: a bf16 call runs three
         # __global__ kernels (pre-pass, tensor-core pass, dQ cast), an f32 call
-        # two (dQ with δ, then dK/dV), and a profiler shows that many flash_bwd
+        # two (the dQ pass with each query's m, 1/Σ and δ, then the dK/dV
+        # pass), and a profiler shows that many flash_bwd
         # events per call. A call without stats also adds 1 to flash_fwd's
         # count (the stats-mode forward that recomputes m and Σ).
         "kernels_per_launch": {str(k)[6:]: v for k, v in BWD_KERNELS.items()},

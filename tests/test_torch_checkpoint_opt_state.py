@@ -138,9 +138,9 @@ def test_jax_opt_state_loads_into_the_port(tmp_path, form):
 
 
 TINY = ["train", "--device", "cpu", "--variant", "3", "--f-kernel", "3", "--f-beta", "2",
-        "--image-size", "8", "--base-width", "8", "--batch-size", "128", "--noise-steps", "20",
-        "--compute-dtype", "float32", "--image-gen-per-epoch", "0", "--dataset", "CIFAR10",
-        "--checkpoint-opt-state", "--use-ema"]
+        "--image-size", "8", "--image-channels", "3", "--base-width", "8", "--batch-size", "128",
+        "--noise-steps", "20", "--compute-dtype", "float32", "--image-gen-per-epoch", "0",
+        "--dataset", "CIFAR10", "--checkpoint-opt-state", "--use-ema"]
 CKPT = os.path.join("models", "DDPM_Uncondtional_CIFAR10_3", "ckpt_CIFAR10_3.npz")
 
 

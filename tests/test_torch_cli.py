@@ -15,12 +15,12 @@ from aliasfree_diffusion_models_pytorch_tpu.models.unet import UNet as JUNet
 from aliasfree_diffusion_models_pytorch_tpu.utils.checkpoint import save_checkpoint
 from aliasfree_diffusion_models_pytorch_tpu_torch import cli
 
-TINY = ["--variant", "0", "--image-size", "8", "--noise-steps", "6", "--compute-dtype",
-        "float32", "--device", "cpu", "--dataset", "CIFAR10"]
+TINY = ["--variant", "0", "--image-size", "8", "--image-channels", "3", "--noise-steps", "6",
+        "--compute-dtype", "float32", "--device", "cpu", "--dataset", "CIFAR10"]
 
 
 def test_summary(capsys):
-    assert cli.main(["summary", "--variant", "3", "--image-size", "16"]) == 0
+    assert cli.main(["summary", "--variant", "3", "--image-size", "16", "--image-channels", "3"]) == 0
     out = capsys.readouterr().out
     assert "Config D" in out and "sa6" in out and "total" in out
 

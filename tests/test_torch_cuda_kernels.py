@@ -8,8 +8,12 @@ a machine that has only PyTorch, run it with
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
 Tolerances (f32 inputs of order 1): the f32 kernels sum the same f32
-products in another order and use ``__expf`` where the plain versions use
-``torch.exp``: atol 1e-5 for the forward, 2e-5 for the gradients. In bf16 the
+products in another order (the forward rescales its sums once per key tile,
+the backward adds P/Σ and dS tile by tile) and use ``__expf`` where the plain
+versions use ``torch.exp``: atol 1e-5 for the forward, 2e-5 for the
+gradients, or 2e-5 of the tensor's largest entry where S reaches 4096 and
+the entries shrink like 1/sqrt(S). Two f32 backward calls are bit-equal:
+every sum runs in a fixed order, without atomics. In bf16 the
 tensor-core kernels and the plain versions round p, dS and the result to
 bf16 from f32 values that differ in the last bits (exp2 against exp, the
 tensor cores' adder, dQ summed by atomics), and the backward also rounds g/Σ,
@@ -263,6 +267,68 @@ def test_flash_mha_autograd_on_the_card_matches_the_cpu(card):
         assert launched == ((1, 1) if dev == "cuda" else (0, 0))
     for a, r in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(a, r, rtol=0, atol=2e-5)
+
+
+def _assert_within_f32_share(got, ref, name):
+    err = (got - ref).abs().max().item()
+    limit = 2e-5 * ref.abs().max().item()
+    assert err <= limit, f"{name}: max error {err} > {limit} (2e-5 of the largest entry)"
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("b,h,s", [(5, 4, 16), (3, 4, 32), (2, 3, 200), (1, 4, 1024),
+                                   (1, 2, 4096)],
+                         ids=["s16_bh20", "s32_bh12", "s200", "s1024", "s4096"])
+def test_f32_kernels_at_every_depth(card, b, h, s, d):
+    """The f32 forward (several heads a block at S <= 32, a partial group of
+    heads at B·H = 20 and 12) and the deterministic backward: each within 2e-5
+    of its tensor's largest entry, and two backward calls bit-equal."""
+    q, k, v, g = _tensors(card, b, h, s, d, 4, seed=s + 3 * d)
+    out, m, ssum = fa.flash_attention_fwd(q, k, v, with_stats=True)
+    ref_out, ref_m, ref_s = fa.attention_reference(q, k, v, with_stats=True)
+    _assert_within_f32_share(out, ref_out, "out")
+    _assert_within_f32_share(fa.flash_attention_fwd(q, k, v), ref_out, "out (fold mode)")
+    torch.testing.assert_close(m, ref_m, rtol=0, atol=1e-5)
+    torch.testing.assert_close(ssum, ref_s, rtol=1e-4, atol=0)
+    before = fa.flash_attention_bwd.launches
+    first = fa.flash_attention_bwd(q, k, v, out, m, ssum, g)
+    again = fa.flash_attention_bwd(q, k, v, out, m, ssum, g)
+    assert fa.flash_attention_bwd.launches == before + 2
+    ref = fa.attention_backward_reference(q, k, v, out, m, ssum, g)
+    for name, a, a2, r in zip(("dq", "dk", "dv"), first, again, ref):
+        assert torch.equal(a, a2), f"{name}: two f32 backward calls differ"
+        _assert_within_f32_share(a, r, name)
+
+
+def test_f32_cuda_tensors_never_reach_the_plain_versions(card, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("an f32 CUDA tensor reached a plain version")
+
+    q, k, v, g = _tensors(card, 2, 4, 200, 32, 4, seed=5)
+    monkeypatch.setattr(fa, "attention_reference", refuse)
+    monkeypatch.setattr(fa, "attention_backward_reference", refuse)
+    counts = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    out, m, ssum = fa.flash_attention_fwd(q, k, v, with_stats=True)
+    fa.flash_attention_bwd(q, k, v, out, m, ssum, g)
+    fa.flash_attention_bwd(q, k, v, out, None, None, g)  # stats recomputed by the forward kernel
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    torch.autograd.grad(fa.flash_mha(qg, kg, vg), (qg, kg, vg), g)
+    with torch.no_grad():
+        fa.flash_mha(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches - counts[0],
+            fa.flash_attention_bwd.launches - counts[1]) == (4, 3)
+
+
+def test_f32_kernels_refuse_misaligned_rows(card):
+    flat = torch.zeros(2 * 4 * 64 * 8 + 4, device=card)
+    z = flat[:-4].view(2, 4, 64, 8)
+    off = flat[1:-3].view(2, 4, 64, 8)  # contiguous, 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fwd(off, z, z)
+    out, m, ssum = fa.flash_attention_fwd(z, z, z, with_stats=True)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_bwd(z, z, z, out, m, ssum, off)
 
 
 def test_cuda_tensors_never_take_the_plain_version(card):

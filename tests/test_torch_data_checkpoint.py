@@ -164,8 +164,9 @@ def test_train_config_matches_jax_defaults_and_validation():
     assert TrainConfig(variant=3, filters=FilterSettings()).filters.kernel_size == 3
 
 
-MODEL = ["--variant", "3", "--image-size", "8", "--noise-steps", "6", "--compute-dtype",
-         "float32", "--device", "cpu", "--dataset", "CIFAR10", "--f-kernel", "3", "--f-beta", "2"]
+MODEL = ["--variant", "3", "--image-size", "8", "--image-channels", "3", "--noise-steps", "6",
+         "--compute-dtype", "float32", "--device", "cpu", "--dataset", "CIFAR10", "--f-kernel",
+         "3", "--f-beta", "2"]
 TINY = [*MODEL, "--base-width", "8", "--batch-size", "128", "--image-gen-per-epoch", "2"]
 
 

@@ -68,16 +68,15 @@ def test_forward_plan_rounds_up_a_partial_group_of_heads():
     (torch.bfloat16, {"consts": ((64, 300, 4), torch.float32),
                       "dq_acc": ((64, 300, 16), torch.float32),
                       "g_scaled": ((64, 300, 16), torch.bfloat16)}),
-    (torch.float32, {"consts": ((64, 300), torch.float32)}),
+    (torch.float32, {"consts": ((64, 300, 4), torch.float32)}),
 ])
 def test_backward_scratch_shapes(dtype, expect):
     shapes = fa.bwd_scratch_shapes(64, 300, 16, dtype)
     assert shapes == expect
     assert list(shapes) == list(expect)  # the order afdm_flash_bwd takes them in
-    # every bf16 scratch row is a whole number of 16-byte cp.async chunks
+    # every scratch row is a whole number of 16-byte cp.async chunks
     for shape, dt in shapes.values():
-        if dtype == torch.bfloat16:
-            assert shape[-1] * torch.finfo(dt).bits // 8 % fa.ALIGN == 0
+        assert shape[-1] * torch.finfo(dt).bits // 8 % fa.ALIGN == 0
 
 
 def test_bf16_launch_checks_alignment_and_scale():
@@ -100,7 +99,7 @@ def test_an_edited_shared_header_renames_every_library_that_may_include_it(tmp_p
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["mma_bf16.cuh"]
+    assert [h.name for h in headers] == ["attn_f32.cuh", "mma_bf16.cuh"]
     before = {name: kernels.library_path(name, csrc) for name in kernels.SOURCES}
     assert before == {name: kernels.library_path(name) for name in kernels.SOURCES}
     headers[0].write_text(headers[0].read_text() + "\n// edited\n")

@@ -39,8 +39,8 @@ from aliasfree_diffusion_models_pytorch_tpu_torch.ops.filters import circular_lo
 from aliasfree_diffusion_models_pytorch_tpu_torch.train import step_generator
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils import io, plotting
 
-TINY = ["--variant", "3", "--image-size", "8", "--noise-steps", "20", "--compute-dtype",
-        "float32", "--device", "cpu", "--dataset", "CIFAR10"]
+TINY = ["--variant", "3", "--image-size", "8", "--image-channels", "3", "--noise-steps", "20",
+        "--compute-dtype", "float32", "--device", "cpu", "--dataset", "CIFAR10"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -296,7 +296,8 @@ def test_new_subcommands_parse_with_the_jax_clis_defaults():
     parse = cli.build_parser().parse_args
     rot = parse(["rotate"])
     assert (rot.thetas, rot.out, rot.fps, rot.save_sweep) == ("-90:90:9", "rotation", 15, None)
-    assert (rot.device, rot.variant, rot.noise_steps) == ("cuda", 3, 1000)
+    assert (rot.device, rot.variant, rot.noise_steps) == ("cuda", 0, 1000)
+    assert (rot.image_channels, rot.compute_dtype) == (1, "float32")
     assert parse(["shift"]).shifts == "-8,0,8"
     assert parse(["sweep"]).variants == "1,2,3"
     ev = parse(["eval", "a", "b", "--limit", "7", "--save", "m.txt"])
@@ -305,7 +306,7 @@ def test_new_subcommands_parse_with_the_jax_clis_defaults():
     run_args = parse(["run", "--epochs", "3", "--gen-total", "10", "--gen-per-batch", "5"])
     config = cli.config_from_args(run_args)
     assert (config.epochs, config.gen_total, config.gen_per_batch) == (3, 10, 5)
-    assert config.run_name == "DDPM_Uncondtional_MNIST_3"
+    assert config.run_name == "DDPM_Uncondtional_MNIST_0"
     probe = parse(["probe", "headpack"])
     assert (probe.which, probe.iters, probe.out, probe.small, probe.device) == (
         "headpack", None, None, False, "cuda")
@@ -352,8 +353,8 @@ def test_eval_and_info_subcommands(run, tmp_path, capsys):
 
 def test_sweep_subcommand_runs_the_pipeline_per_variant(tmp_path, capsys):
     assert cli.main(["sweep", "--variants", "0,1", "--image-size", "8", "--noise-steps", "4",
-                     "--compute-dtype", "float32", "--device", "cpu", "--root", str(tmp_path),
-                     "--batch-size", "256", "--epochs", "1", "--image-gen-per-epoch", "0",
+                     "--compute-dtype", "float32", "--image-channels", "3", "--device", "cpu",
+                     "--root", str(tmp_path), "--batch-size", "256", "--epochs", "1", "--image-gen-per-epoch", "0",
                      "--gen-total", "1", "--gen-per-batch", "1", "--f-kernel", "3"]) == 0
     out = capsys.readouterr().out
     for v in (0, 1):
