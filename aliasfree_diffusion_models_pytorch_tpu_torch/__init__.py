@@ -11,9 +11,12 @@ with f32 masters, EMA, the optimizer knobs, ``.npz`` checkpoints) and the
 study path (``tasks.ddpm_run``, the Config-E sweeps, IS/FID/KID in ``eval``,
 the kernel micro-probes), all behind ``cli``. Its hand-written device kernels
 are the flash-attention forward and backward (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``, wrapped by ``ops/flash_attention.py``) and the two
-probe kernels (``csrc/exp_chain.cu``, ``csrc/qk_rowsum.cu``, wrapped by
-``ops/probes.py``).
+``csrc/flash_bwd.cu``, wrapped by ``ops/flash_attention.py``), the filtered
+GELU's kernel pair (``csrc/filtered_gelu.cu``, wrapped by ``ops/resample.py``)
+and the two probe kernels (``csrc/exp_chain.cu``, ``csrc/qk_rowsum.cu``,
+wrapped by ``ops/probes.py``). Data-parallel and FSDP training over
+torch.distributed live in ``parallel/`` and ``train.py``; ``impl_flags``
+records a run's implementation choices.
 """
 
 __version__ = "0.1.0"

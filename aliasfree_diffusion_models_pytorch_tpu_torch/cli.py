@@ -16,8 +16,11 @@
 
 The flags and their defaults are the JAX CLI's (``cli.py:_add_common``): Config
 A (variant 0) at 32 px, one channel, f32, so the same command line trains and
-samples the same model in both packages. ``--device`` and ``--lr-total-steps``
-are the port's own. ``train`` writes the
+samples the same model in both packages. Every subcommand that takes them in
+the JAX CLI takes the training flags (``sample``, ``rotate``, ``shift`` and
+``summary`` read none of them). ``--device`` and ``--lr-total-steps`` are the
+port's own. Data-parallel training runs one process a GPU under ``torchrun``
+(``parallel/``); ``info`` prints the mesh ``parallel.make_mesh()`` gives. ``train`` writes the
 run's ``.npz`` checkpoint (``models/<run_name>/ckpt_<dataset>_<variant>.npz``
 under ``--root``), in the JAX package's layout; with no ``--dataset-path`` it
 trains on the synthetic dataset. ``run`` is the whole experiment pipeline
@@ -103,7 +106,7 @@ def _add_train(p: argparse.ArgumentParser) -> None:
                    help="global-norm gradient clipping threshold")
 
 
-# TrainConfig field -> argparse attribute of the train subcommand
+# TrainConfig field -> argparse attribute of the training flags
 _TRAIN_FIELDS = {
     "epochs": "epochs", "batch_size": "batch_size", "dataset_path": "dataset_path",
     "lr": "lr", "image_gen_n": "image_gen_per_epoch", "gen_per_batch": "gen_per_batch",
@@ -138,9 +141,7 @@ def config_from_args(args) -> TrainConfig:
         compute_dtype=args.compute_dtype,
         use_ema=args.use_ema,
         num_classes=args.num_classes,
-        # the train subcommand's flags; the other subcommands keep the defaults
-        **{field: getattr(args, flag) for field, flag in _TRAIN_FIELDS.items()
-           if hasattr(args, flag)},
+        **{field: getattr(args, flag) for field, flag in _TRAIN_FIELDS.items()},
     )
 
 
@@ -162,9 +163,10 @@ def build_parser() -> argparse.ArgumentParser:
     probe = sub.add_parser("probe", help="kernel micro-probes: exp cost, QK^T head packing")
     grid = sub.add_parser("reproduce-grid",
                           help="train + eval the published quality grid (reference README)")
+    # The JAX CLI gives every subcommand but eval, info and reproduce-grid its
+    # training flags too; sample, rotate, shift and summary read none of them.
     for p in (run, train, sample, rotate, shift, summary, sweep):
         _add_common(p)
-    for p in (run, train, sweep):
         _add_train(p)
     rotate.add_argument("--thetas", default="-90:90:9", help="start:stop:count degrees")
     rotate.add_argument("--out", default="rotation")
@@ -262,10 +264,14 @@ def run_sample(args) -> np.ndarray:
 
 
 def run_train(args) -> list[float]:
-    """The ``train`` subcommand: returns the per-epoch mean losses."""
+    """The ``train`` subcommand: returns the per-epoch mean losses. Under
+    ``torchrun`` (one process a GPU) it starts torch.distributed and trains
+    data-parallel (``train.train_mesh``); rank 0 writes the run."""
     from aliasfree_diffusion_models_pytorch_tpu_torch.data import get_data
+    from aliasfree_diffusion_models_pytorch_tpu_torch.parallel.multihost import init_distributed
     from aliasfree_diffusion_models_pytorch_tpu_torch.train import train
 
+    init_distributed()  # torchrun's environment; nothing without one
     config = config_from_args(args)
     dl, _ = get_data(
         config.dataset, config.dataset_path, config.image_size, config.batch_size,
@@ -361,14 +367,18 @@ def run_probe(args) -> dict:
 
 
 def info_text() -> str:
-    """The ``info`` subcommand's report: torch and CUDA versions, and every
-    visible device with its memory."""
+    """The ``info`` subcommand's report: torch and CUDA versions, every
+    visible device with its memory, and the default mesh of this process
+    (``parallel.make_mesh()``: every rank on the ``data`` axis)."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.parallel import make_mesh, world
+
     lines = [f"torch: {torch.__version__}  cuda: {torch.version.cuda}  "
              f"available: {torch.cuda.is_available()}  devices: {torch.cuda.device_count()}"]
     for i in range(torch.cuda.device_count()):
         props = torch.cuda.get_device_properties(i)
         lines.append(f"  cuda:{i} {props.name}  {props.total_memory / 2**30:.1f} GiB  "
                      f"sm_{props.major}{props.minor}  {props.multi_processor_count} SMs")
+    lines.append(f"default mesh: shape={make_mesh(ranks=range(world()[1])).shape}")
     return "\n".join(lines)
 
 

@@ -2,9 +2,9 @@
 
 Mirrors ``aliasfree_diffusion_models_pytorch_tpu/config.py``: the fields of
 :class:`FilterSettings` and of ``TrainConfig`` (model, sampler, data,
-optimizer, EMA, checkpointing, artifact paths) with the same defaults and
-validation. Not carried over: the mesh fields (``mesh_shape``, ``mesh_axes``),
-which wait for multi-GPU training.
+optimizer, EMA, checkpointing, mesh, artifact paths) with the same defaults
+and validation, and the round trip through the reference ``Train.ipynb``
+params dict (``from_params``, ``to_dict``).
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+from typing import Any, Mapping
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +37,24 @@ class FilterSettings:
             w = getattr(self, name)
             if not (0.0 < w <= math.pi + 1e-9):
                 raise ValueError(f"{name} must be in (0, pi], got {w}")
+
+    @classmethod
+    def from_params(cls, params: Mapping[str, Any]) -> "FilterSettings | None":
+        """From a reference-style params dict; None without filters (an
+        ``f_kernel`` of None: variant 0, Config A), as ``ddpm_run`` derives
+        its ``f_settings``."""
+        if params.get("f_kernel") is None:
+            return None
+        return cls(
+            kernel_size=int(params["f_kernel"]),
+            kaiser_beta=params.get("f_beta"),
+            omega_c_down=float(params["f_down"]),
+            omega_c_up=float(params["f_up"]),
+            normalize=bool(params.get("f_normalize", True)),
+        )
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +89,10 @@ class TrainConfig:
     beta_start: float = 1e-4
     beta_end: float = 0.02
 
+    # The rank grid of data-parallel and FSDP training (parallel/mesh.py); a
+    # run under torch.distributed builds its mesh from the ranks it has.
+    mesh_shape: tuple[int, ...] = (1,)
+    mesh_axes: tuple[str, ...] = ("data",)
     compute_dtype: str = "float32"  # "bfloat16" for the tensor-core path
     use_ema: bool = False
     ema_beta: float = 0.995
@@ -142,6 +165,33 @@ class TrainConfig:
                 f"compute_dtype must be 'float32' or 'bfloat16', got {self.compute_dtype!r}"
             )
 
+    @classmethod
+    def from_params(cls, params: Mapping[str, Any]) -> "TrainConfig":
+        """From a reference ``Train.ipynb``-style params dict (its keys,
+        ``batchsize`` and ``save_trining`` [sic] included)."""
+        variant = int(params["unet_v"])
+        dataset = params["dataset"]
+        return cls(
+            run_name=f"DDPM_Uncondtional_{dataset}_{variant}",
+            epochs=int(params["epochs"]),
+            batch_size=int(params["batchsize"]),
+            image_size=int(params["image_size"]),
+            image_channels=int(params["image_channels"]),
+            dataset_path=params.get("dataset_dir"),
+            lr=float(params["lr"]),
+            noise_steps=int(params["noise_steps"]),
+            image_gen_n=int(params.get("image_gen_per_epoch", 4)),
+            variant=variant,
+            dataset=dataset,
+            seed=int(params.get("seed", 42)),
+            filters=FilterSettings.from_params(params),
+            gen_per_batch=int(params.get("gen_per_batch", 200)),
+            gen_total=int(params.get("gen_total", 2000)),
+            collage_n_per_image=int(params.get("collage_n_per_image", 400)),
+            collage_n=int(params.get("collage_n", 2000)),
+            save_training=bool(params.get("save_trining", False)),  # [sic]
+        )
+
     # Artifact paths — the JAX package's (and the reference's) scheme.
     def model_dir(self, root: str = ".") -> str:
         return f"{root}/models/{self.run_name}"
@@ -161,8 +211,10 @@ class TrainConfig:
     def settings_text(self) -> str:
         """Human-readable settings dump, one ``key: value`` per line: the
         ``settings_{dataset}_{variant}.txt`` snapshot that ``ddpm_run``
-        writes. (The JAX package appends its implementation switches; the
-        port has none.)"""
+        writes, ended by the ``impl.*`` lines of the implementation choices
+        in effect (``impl_flags.impl_report``), as in the JAX package."""
+        from aliasfree_diffusion_models_pytorch_tpu_torch.impl_flags import impl_report_text
+
         d = dataclasses.asdict(self)
         f = d.pop("filters", None)
         lines = [f"{k}: {v}" for k, v in d.items()]
@@ -171,4 +223,5 @@ class TrainConfig:
             lines += [f"{k}: {v}" for k, v in f.items()]
         else:
             lines += [f"{k}: None" for k in filter_keys]
+        lines.append(impl_report_text())
         return "\n".join(lines)

@@ -19,8 +19,8 @@
 //   dP_ab = gelu'(P_ab)·dG_ab;   dx[i, j] = Σ_ab Σ_terms u[dy][dx]·dP_ab[i − (a+dy−p)/2, ...].
 //
 // Types. bf16 (the model's) rounds where the plain version rounds, which is where the conv form
-// rounds: P_ab to bf16; the GELU's output to bf16 (the JAX package's degree-15 polynomial,
-// evaluated in f32); the down sum once. In the backward: dG to bf16, dP to bf16, dx once —
+// rounds: P_ab to bf16; the GELU's output to bf16 (by default the JAX package's degree-15
+// polynomial, evaluated in f32; see the GELU forms below); the down sum once. In the backward: dG to bf16, dP to bf16, dx once —
 // the points where autograd of the plain version casts. f32 uses the exact erf GELU and its
 // derivative in torch's own formulas, and rounds nowhere. The forward's products and sums are
 // separate, rounded f32 operations in the plain version's order, so it is bit-equal to the plain
@@ -150,39 +150,65 @@ __device__ __forceinline__ void store_words(T* p, const float* v) {
   }
 }
 
-// The port's gelu_exact (ops/resample.py): x·(0.5 + x_c·R(x_c²)), x_c = clamp(x, ±3.2·√2), R the
-// JAX package's degree-15 bf16 fit, each product and sum rounded as torch rounds them.
+// The GELU forms, as ops/resample.py:gelu_form names them (FG_GELU_FORMS, in this order): the
+// form is a template parameter of the kernels, so each instantiation has one form and no branch.
+// AFDM_GELU picks it for bf16, as in the JAX package (ops/resample.py:305-343): unset, the
+// degree-15 polynomial; poly13, the degree-13 one; exact, the erf form. f32 takes erf always.
+constexpr int kGeluPoly15 = 0, kGeluPoly13 = 1, kGeluErf = 2;
+
+// The port's gelu_exact (ops/resample.py) on bf16: x·(0.5 + x_c·R(x_c²)), x_c = clamp(x, ±3.2·√2),
+// R the JAX package's degree-15 (or degree-13) bf16 fit, each product and sum rounded as torch
+// rounds them.
 constexpr float kClamp = 4.5254833995939045f;
 __constant__ float kPoly[8] = {
     0.39847720532397357f, -0.06533923798456039f, 0.009128171697420397f,
     -0.0008978316975850138f, 5.914830951568466e-05f, -2.454260270985954e-06f,
     5.750126543924546e-08f, -5.770954416805585e-10f};
+__constant__ float kPoly13[7] = {
+    0.39736903338755974f, -0.06336353822103462f, 0.008126449758425384f,
+    -0.0006760143548142659f, 3.4051160496925107e-05f, -9.359854638467884e-07f,
+    1.0721949130855751e-08f};
 
+// Coefficient i of the form's polynomial, from constant memory (i is a constant once unrolled).
+template <int G>
+struct Poly {
+  static constexpr int N = G == kGeluPoly13 ? 7 : 8;
+  static __device__ __forceinline__ float at(int i) {
+    if constexpr (G == kGeluPoly13) return kPoly13[i];
+    return kPoly[i];
+  }
+};
+
+template <int G>
 __device__ __forceinline__ float gelu_poly(float x) {
+  constexpr int N = Poly<G>::N;
   const float xc = fminf(fmaxf(x, -kClamp), kClamp);
   const float t = __fmul_rn(xc, xc);
-  float p = kPoly[7];
+  float p = Poly<G>::at(N - 1);
 #pragma unroll
-  for (int i = 6; i >= 0; --i) p = __fadd_rn(__fmul_rn(p, t), kPoly[i]);
+  for (int i = N - 2; i >= 0; --i) p = __fadd_rn(__fmul_rn(p, t), Poly<G>::at(i));
   return __fmul_rn(x, __fadd_rn(0.5f, __fmul_rn(xc, p)));
 }
 
 // d/dx of gelu_poly: h + x·(R + 2t·R'(t)) inside the clamp, h = 0.5 + x_c·R outside it (the
 // clamp's slope is zero there), as autograd of the plain version gives it.
+template <int G>
 __device__ __forceinline__ float gelu_poly_grad(float x) {
+  constexpr int N = Poly<G>::N;
   const float xc = fminf(fmaxf(x, -kClamp), kClamp);
   const float t = xc * xc;
-  float p = kPoly[7], dp = 0.f;
+  float p = Poly<G>::at(N - 1), dp = 0.f;
 #pragma unroll
-  for (int i = 6; i >= 0; --i) {
+  for (int i = N - 2; i >= 0; --i) {
     dp = fmaf(dp, t, p);
-    p = fmaf(p, t, kPoly[i]);
+    p = fmaf(p, t, Poly<G>::at(i));
   }
   const float h = fmaf(xc, p, 0.5f);
   return (x >= -kClamp && x <= kClamp) ? fmaf(x, fmaf(2.f * t, dp, p), h) : h;
 }
 
-// torch's exact GELU and its derivative (GeluType::None), in f32.
+// torch's exact GELU and its derivative (GeluType::None), in f32: torch computes a bf16 GELU in
+// f32 too and rounds once, so the bf16 erf form rounds where the plain version does.
 __device__ __forceinline__ float gelu_erf(float x) {
   return __fmul_rn(__fmul_rn(x, 0.5f), __fadd_rn(1.f, erff(__fmul_rn(x, 0.70710678118654752f))));
 }
@@ -193,16 +219,16 @@ __device__ __forceinline__ float gelu_erf_grad(float x) {
   return cdf + x * pdf;
 }
 
-template <typename T>
+template <int G>
 __device__ __forceinline__ float gelu(float x) {
-  if constexpr (sizeof(T) == 2) return gelu_poly(x);
-  return gelu_erf(x);
+  if constexpr (G == kGeluErf) return gelu_erf(x);
+  return gelu_poly<G>(x);
 }
 
-template <typename T>
+template <int G>
 __device__ __forceinline__ float gelu_grad(float x) {
-  if constexpr (sizeof(T) == 2) return gelu_poly_grad(x);
-  return gelu_erf_grad(x);
+  if constexpr (G == kGeluErf) return gelu_erf_grad(x);
+  return gelu_poly_grad<G>(x);
 }
 
 // The index plan of phase_terms for odd K, as compile-time constants.
@@ -320,13 +346,13 @@ __device__ __forceinline__ float up_phase(const float (&xr)[Plan<K>::UR][XN], in
 }
 
 // Blocks an SM must hold: four of 128 threads (at most 128 registers a thread) for the model's
-// bf16 k = 3, so a call of 65536 threads is one wave; fewer where more registers keep f32 and
-// k ≥ 5 from spilling.
-template <typename T, int K>
-constexpr int kMinBlocks = K > 3 ? 2 : sizeof(T) == 2 ? 4 : 3;
+// bf16 k = 3 with a polynomial GELU, so a call of 65536 threads is one wave; fewer where more
+// registers keep the erf form (f32, or bf16 under AFDM_GELU=exact) and k ≥ 5 from spilling.
+template <typename T, int K, int G>
+constexpr int kMinBlocks = K > 3 ? 2 : (sizeof(T) == 2 && G != kGeluErf) ? 4 : 3;
 
-template <typename T, int K, int S, int RX>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<T, K>)
+template <typename T, int K, int S, int RX, int G>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T, K, G>)
     filtered_gelu_fwd_kernel(const T* __restrict__ x, const T* __restrict__ up,
                              const T* __restrict__ down, T* __restrict__ out, Geometry g) {
   using Pl = Plan<K>;
@@ -381,7 +407,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T, K>)
 #pragma unroll
           for (int c = 0; c < GN; ++c) {
             gv[b][c] = col_in<S, RX>(GLO + c, j0, w)
-                           ? Io<T>::round(gelu<T>(Io<T>::round(up_phase<T, K, XN, false>(xr, c + GLO - XLO, a, b, tu))))
+                           ? Io<T>::round(gelu<G>(Io<T>::round(up_phase<T, K, XN, false>(xr, c + GLO - XLO, a, b, tu))))
                            : 0.f;
           }
         }
@@ -420,8 +446,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T, K>)
   }
 }
 
-template <typename T, int K, int S, int RX>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<T, K>)
+template <typename T, int K, int S, int RX, int G>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T, K, G>)
     filtered_gelu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
                              const T* __restrict__ up, const T* __restrict__ down,
                              T* __restrict__ dx, Geometry g) {
@@ -505,7 +531,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T, K>)
                           gr[Pl::DHI - Pl::down_shift(ty)][c + VLO - Pl::down_shift(tx) - GLO], dg);
               }
             }
-            dv[b][c] = Io<T>::round(gelu_grad<T>(p) * Io<T>::round(dg));
+            dv[b][c] = Io<T>::round(gelu_grad<G>(p) * Io<T>::round(dg));
           }
         }
       } else {
@@ -546,46 +572,47 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T, K>)
   }
 }
 
-template <typename T, int K, int S, int RX>
+template <typename T, int K, int S, int RX, int G>
 cudaError_t launch(const void* x, const void* gout, const void* up, const void* down, void* y,
                    const Geometry& geo, unsigned blocks, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* ut = static_cast<const T*>(up);
   const T* dt = static_cast<const T*>(down);
   if (gout != nullptr) {
-    filtered_gelu_bwd_kernel<T, K, S, RX><<<blocks, kThreads, 0, stream>>>(
+    filtered_gelu_bwd_kernel<T, K, S, RX, G><<<blocks, kThreads, 0, stream>>>(
         xt, static_cast<const T*>(gout), ut, dt, static_cast<T*>(y), geo);
   } else {
-    filtered_gelu_fwd_kernel<T, K, S, RX><<<blocks, kThreads, 0, stream>>>(
+    filtered_gelu_fwd_kernel<T, K, S, RX, G><<<blocks, kThreads, 0, stream>>>(
         xt, ut, dt, static_cast<T*>(y), geo);
   }
   return cudaGetLastError();
 }
 
 // The instantiations (ops/resample.py:fg_plan mirrors this table): square planes of side 4 to
-// 128 at k = 3, RX = min(side, 8); every other shape and k generic, RX = 4 (k ≤ 3) or 2.
-template <typename T>
+// 128 at k = 3, RX = min(side, 8); every other shape and k generic, RX = 4 (k ≤ 3) or 2; each
+// for every GELU form of its type (bf16 three, f32 the erf form).
+template <typename T, int G>
 cudaError_t dispatch(int k, int side, int cols, const void* x, const void* gout, const void* up,
                      const void* down, void* y, const Geometry& geo, unsigned blocks,
                      cudaStream_t st) {
   if (side == 0) {
     if (cols != (k <= 3 ? 4 : 2)) return cudaErrorInvalidValue;
     switch (k) {
-      case 1: return launch<T, 1, 0, 4>(x, gout, up, down, y, geo, blocks, st);
-      case 3: return launch<T, 3, 0, 4>(x, gout, up, down, y, geo, blocks, st);
-      case 5: return launch<T, 5, 0, 2>(x, gout, up, down, y, geo, blocks, st);
-      case 7: return launch<T, 7, 0, 2>(x, gout, up, down, y, geo, blocks, st);
+      case 1: return launch<T, 1, 0, 4, G>(x, gout, up, down, y, geo, blocks, st);
+      case 3: return launch<T, 3, 0, 4, G>(x, gout, up, down, y, geo, blocks, st);
+      case 5: return launch<T, 5, 0, 2, G>(x, gout, up, down, y, geo, blocks, st);
+      case 7: return launch<T, 7, 0, 2, G>(x, gout, up, down, y, geo, blocks, st);
       default: return cudaErrorInvalidValue;
     }
   }
   if (k != 3 || cols != (side < 8 ? side : 8)) return cudaErrorInvalidValue;
   switch (side) {
-    case 4: return launch<T, 3, 4, 4>(x, gout, up, down, y, geo, blocks, st);
-    case 8: return launch<T, 3, 8, 8>(x, gout, up, down, y, geo, blocks, st);
-    case 16: return launch<T, 3, 16, 8>(x, gout, up, down, y, geo, blocks, st);
-    case 32: return launch<T, 3, 32, 8>(x, gout, up, down, y, geo, blocks, st);
-    case 64: return launch<T, 3, 64, 8>(x, gout, up, down, y, geo, blocks, st);
-    case 128: return launch<T, 3, 128, 8>(x, gout, up, down, y, geo, blocks, st);
+    case 4: return launch<T, 3, 4, 4, G>(x, gout, up, down, y, geo, blocks, st);
+    case 8: return launch<T, 3, 8, 8, G>(x, gout, up, down, y, geo, blocks, st);
+    case 16: return launch<T, 3, 16, 8, G>(x, gout, up, down, y, geo, blocks, st);
+    case 32: return launch<T, 3, 32, 8, G>(x, gout, up, down, y, geo, blocks, st);
+    case 64: return launch<T, 3, 64, 8, G>(x, gout, up, down, y, geo, blocks, st);
+    case 128: return launch<T, 3, 128, 8, G>(x, gout, up, down, y, geo, blocks, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -596,6 +623,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) 
 
 // x (and, for the backward, g) and the result y: contiguous (planes, h, w) arrays of f32
 // (is_bf16 = 0) or bf16 (is_bf16 = 1); up and down: contiguous k × k taps of the same type.
+// gelu: the GELU form (kGeluPoly15, kGeluPoly13 or kGeluErf; f32 takes kGeluErf only).
 // g == nullptr launches the forward (y = filtered GELU of x), otherwise the backward (y = dx).
 // The plan from ops/resample.py:fg_plan: a thread takes `rows` rows × `cols` columns of a plane;
 // `side` names a square-plane instantiation (h = w = side, k = 3, 16-byte aligned x, g and y,
@@ -603,7 +631,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) 
 // `stream` and returns its cudaError_t (0 on success).
 extern "C" int afdm_filtered_gelu(const void* x, const void* g, const void* up, const void* down,
                                   void* y, int planes, int h, int w, int k, int rows, int cols,
-                                  int side, int is_bf16, void* stream) {
+                                  int side, int is_bf16, int gelu, void* stream) {
   if (planes < 1 || h < 1 || w < 1 || rows < 1 || rows > h || cols < 1) {
     return cudaErrorInvalidValue;
   }
@@ -621,9 +649,18 @@ extern "C" int afdm_filtered_gelu(const void* x, const void* g, const void* up, 
   const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
   const Geometry geo{planes, h, w, rows, strips_x, strips_y, sy_shift};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? dispatch<bf16>(k, side, cols, x, g, up, down, y, geo, blocks, st)
-              : dispatch<float>(k, side, cols, x, g, up, down, y, geo, blocks, st);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (!is_bf16) {
+    if (gelu == kGeluErf) {
+      err = dispatch<float, kGeluErf>(k, side, cols, x, g, up, down, y, geo, blocks, st);
+    }
+  } else if (gelu == kGeluPoly15) {
+    err = dispatch<bf16, kGeluPoly15>(k, side, cols, x, g, up, down, y, geo, blocks, st);
+  } else if (gelu == kGeluPoly13) {
+    err = dispatch<bf16, kGeluPoly13>(k, side, cols, x, g, up, down, y, geo, blocks, st);
+  } else if (gelu == kGeluErf) {
+    err = dispatch<bf16, kGeluErf>(k, side, cols, x, g, up, down, y, geo, blocks, st);
+  }
   return static_cast<int>(err);
 }
 

@@ -153,12 +153,17 @@ class FeatureExtractor(Protocol):
         ...
 
 
+# cuDNN's TF32 switch while the metrics' features are computed: off, so the
+# convolutions keep about seven decimal digits instead of TF32's three.
+EVAL_CUDNN_TF32 = False
+
+
 @contextlib.contextmanager
 def full_float32():
-    """Float32 convolutions in full float32 for the duration (cuDNN would
-    otherwise take TF32, about three decimal digits)."""
+    """Float32 convolutions at cuDNN's :data:`EVAL_CUDNN_TF32` for the
+    duration (full float32)."""
     before = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = EVAL_CUDNN_TF32
     try:
         yield
     finally:

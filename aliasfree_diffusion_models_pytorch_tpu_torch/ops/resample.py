@@ -51,6 +51,8 @@ __all__ = [
     "fg_impl",
     "fg_impl_override",
     "gelu_exact",
+    "gelu_mode",
+    "gelu_form",
     "phase_terms",
     "filtered_gelu_phases",
     "filtered_gelu_fwd",
@@ -111,27 +113,56 @@ def upsample2x(x: torch.Tensor, taps, factor: int = 2, gain: float = 1.0) -> tor
     return _depthwise(stuffed, t, 1)
 
 
-# Minimax polynomial for gelu(x) = x·(0.5 + x_c·R(x_c²)), x_c = clip(x, ±XC):
-# the JAX package's degree-15 bf16 fit (max |gelu err| 3.7e-4, an order below
-# bf16 rounding), copied coefficient for coefficient.
+# Minimax polynomials for gelu(x) = x·(0.5 + x_c·R(x_c²)), x_c = clip(x, ±XC):
+# the JAX package's bf16 fits, copied coefficient for coefficient (JAX
+# ``ops/resample.py:311-315``): degree 15 by default (max |gelu err| 3.7e-4,
+# an order below bf16 rounding), degree 13 under ``AFDM_GELU=poly13``
+# (1.4e-3, one Horner step fewer).
 _GELU_POLY_15 = (
     0.39847720532397357, -0.06533923798456039, 0.009128171697420397,
     -0.0008978316975850138, 5.914830951568466e-05, -2.454260270985954e-06,
     5.750126543924546e-08, -5.770954416805585e-10,
 )
+_GELU_POLY_13 = (
+    0.39736903338755974, -0.06336353822103462, 0.008126449758425384,
+    -0.0006760143548142659, 3.4051160496925107e-05, -9.359854638467884e-07,
+    1.0721949130855751e-08,
+)
 _GELU_CLAMP = 3.2 * float(np.sqrt(2.0))  # |erf(x/√2)| == 1 to f32 beyond
 
 
+def gelu_mode() -> str | None:
+    """The GELU form ``AFDM_GELU`` asks for (``exact`` | ``poly13``), else
+    None, as the JAX package reads it. A captured step or sampler keys its
+    CUDA graph on it: the form is fixed at capture, as JAX fixes it at trace."""
+    env = os.environ.get("AFDM_GELU")
+    return env if env in ("exact", "poly13") else None
+
+
+def gelu_form(dtype: torch.dtype) -> str:
+    """What :func:`gelu_exact` computes for ``dtype``: ``"erf"`` on f32 and
+    under ``AFDM_GELU=exact``; on bf16 otherwise ``"poly13"`` under
+    ``AFDM_GELU=poly13`` and ``"poly15"`` by default."""
+    mode = gelu_mode()
+    if dtype != torch.bfloat16 or mode == "exact":
+        return "erf"
+    return "poly13" if mode == "poly13" else "poly15"
+
+
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
-    """Exact-erf GELU on f32; the degree-15 polynomial, evaluated in f32, on
-    bf16 — the choice the JAX package makes by default."""
-    if x.dtype != torch.bfloat16:
+    """Exact-erf GELU (torch's ``F.gelu``) with the JAX package's bf16 fast
+    path: on bf16 a polynomial evaluated in f32 and rounded once, degree 15 or
+    13 (:func:`gelu_form`); ``AFDM_GELU=exact`` forces the erf form, which on
+    bf16 torch also computes in f32 and rounds once."""
+    form = gelu_form(x.dtype)
+    if form == "erf":
         return F.gelu(x)
+    coefs = _GELU_POLY_13 if form == "poly13" else _GELU_POLY_15
     xf = x.float()
     xc = xf.clamp(-_GELU_CLAMP, _GELU_CLAMP)
     t = xc * xc
-    p = torch.full_like(t, _GELU_POLY_15[-1])
-    for coef in _GELU_POLY_15[-2::-1]:
+    p = torch.full_like(t, coefs[-1])
+    for coef in coefs[-2::-1]:
         p = p * t + coef
     return (xf * (0.5 + xc * p)).to(x.dtype)
 
@@ -220,7 +251,7 @@ def filtered_gelu_phases(x: torch.Tensor, up_taps, down_taps) -> torch.Tensor:
     and the decimating down conv reads the phases back at constant offsets.
     Rounding points, those of the conv form: the taps in the input's dtype;
     each phase summed in f32 and rounded to the input dtype (the upsample's
-    output); :func:`gelu_exact` (the polynomial on bf16); the down sum in f32,
+    output); :func:`gelu_exact` (on bf16 the polynomial, or erf: :func:`gelu_form`); the down sum in f32,
     rounded once. In f32 nothing rounds between the steps.
     """
     tu, td = (_taps(t, x).float() for t in (up_taps, down_taps))
@@ -258,6 +289,9 @@ FG_MIN_ROWS = 2
 # Threads a call should have before its strips are made shorter: about what
 # the card holds at once (132 SMs × 512 threads at the pair's register counts).
 FG_TARGET_THREADS = 65536
+# The kernels' GELU forms, by the index the C interface takes (csrc/
+# filtered_gelu.cu: kGeluPoly15, kGeluPoly13, kGeluErf); f32 takes "erf" only.
+FG_GELU_FORMS = ("poly15", "poly13", "erf")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,7 +336,7 @@ def fg_plan(planes: int, h: int, w: int, k: int, aligned: bool = True) -> FgPlan
 def _fg_lib() -> ctypes.CDLL:
     lib = kernels.load("filtered_gelu")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.afdm_filtered_gelu.argtypes = [vp] * 5 + [ci] * 8 + [vp]
+    lib.afdm_filtered_gelu.argtypes = [vp] * 5 + [ci] * 9 + [vp]
     lib.afdm_filtered_gelu.restype = ci
     lib.afdm_cuda_error_string.argtypes = [ci]
     lib.afdm_cuda_error_string.restype = ctypes.c_char_p
@@ -311,8 +345,8 @@ def _fg_lib() -> ctypes.CDLL:
 
 def _fg_launch(x, g, up, down) -> tuple[torch.Tensor, FgPlan]:
     """Checks and launches one kernel of the pair: the forward without ``g``,
-    the backward with it. Returns the new (n, c, h, w) tensor and the plan it
-    launched."""
+    the backward with it, in the GELU form :func:`gelu_form` gives for x's
+    dtype. Returns the new (n, c, h, w) tensor and the plan it launched."""
     if x.dim() != 4:
         raise ValueError(f"expected an (N, C, H, W) tensor, got shape {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -338,7 +372,8 @@ def _fg_launch(x, g, up, down) -> tuple[torch.Tensor, FgPlan]:
         err = lib.afdm_filtered_gelu(
             x.data_ptr(), None if g is None else g.data_ptr(), up.data_ptr(), down.data_ptr(),
             y.data_ptr(), n * c, h, w, k, plan.rows, plan.cols, plan.side,
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+            int(x.dtype == torch.bfloat16), FG_GELU_FORMS.index(gelu_form(x.dtype)),
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"filtered_gelu launch failed: "
                            f"{lib.afdm_cuda_error_string(err).decode()}")

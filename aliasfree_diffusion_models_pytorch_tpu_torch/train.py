@@ -52,10 +52,32 @@ numbered on from the epoch the checkpoint stopped in, where the dataloader
 goes on too. So N epochs and N = k + (N − k) with a resume between take the
 same steps on the same data at the same learning rates, and the resumed run's
 sample grids do not write over the first run's.
+
+Data parallelism and FSDP (``parallel/``). Under a :class:`~parallel.mesh.Mesh`
+of ranks (one process a GPU, torch.distributed), ``make_train_step(mesh=)``
+steps one rank's rows of the global batch: the rows split over every rank of
+the mesh, in grid order (``parallel.put_global_batch``). Every rank draws the
+global batch's ``t``, noise and label mask from the same generator and takes
+its rows' part, and its loss is its rows' share of the global mean (the
+masked sum over ``n_real``, the padded duplicates masked by their global
+row), so the gradients summed over the ranks are the single-device step's,
+up to the order of that sum: an all-reduce on a ``data`` mesh. With an
+``fsdp`` axis larger than 1 (:func:`state_sharding_tree`) each rank keeps only
+its shard of the f32 masters, AdamW's moments, the EMA and the accumulator:
+the step all-gathers the masters into the compute model before the forward,
+reduce-scatters the gradients onto the shards (and all-reduces those over
+the ``data`` axis), and updates the shards. The loss the step returns is the
+global mean on every rank. ``train()`` builds a data mesh when
+torch.distributed runs more than one rank (``config.mesh_shape`` and
+``mesh_axes`` where they cover the ranks); rank 0 alone writes the run's
+artifacts (the profiler's trace too), the checkpoint whole, in the
+single-device layout. One process is the same step with one part: its rows
+are the whole batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -71,7 +93,16 @@ from aliasfree_diffusion_models_pytorch_tpu_torch.config import TrainConfig
 from aliasfree_diffusion_models_pytorch_tpu_torch.data import Dataloader, PrefetchLoader
 from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
 from aliasfree_diffusion_models_pytorch_tpu_torch.models.unet import UNet, build_model, param_count
-from aliasfree_diffusion_models_pytorch_tpu_torch.ops.resample import fg_impl_override
+from aliasfree_diffusion_models_pytorch_tpu_torch.ops.resample import fg_impl_override, gelu_mode
+from aliasfree_diffusion_models_pytorch_tpu_torch.parallel import (
+    Mesh,
+    Sharding,
+    batch_sharding,
+    make_mesh,
+    param_sharding,
+    world,
+)
+from aliasfree_diffusion_models_pytorch_tpu_torch.parallel.multihost import put_global_batch
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils.graphs import GraphedStep
 
 logger = logging.getLogger(__name__)
@@ -181,11 +212,35 @@ class EMA:
         return self.update_model_average(ema_params, params)
 
 
+def _all_gather(sharding: Sharding, shard: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of which every rank of the sharding's axis holds a
+    piece (a collective over that axis)."""
+    import torch.distributed as dist
+
+    d = sharding.dim
+    moved = shard.movedim(d, 0).contiguous()
+    out = moved.new_empty((sharding.parts() * moved.shape[0],) + tuple(moved.shape[1:]))
+    dist.all_gather_into_tensor(out, moved, group=sharding.mesh.group(sharding.spec[d]))
+    return out.movedim(0, d)
+
+
+def _reduce_scatter(sharding: Sharding, whole: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of the sum over the sharding's axis of ``whole``."""
+    import torch.distributed as dist
+
+    d = sharding.dim
+    moved = whole.movedim(d, 0).contiguous()
+    out = moved.new_empty((moved.shape[0] // sharding.parts(),) + tuple(moved.shape[1:]))
+    dist.reduce_scatter_tensor(out, moved, group=sharding.mesh.group(sharding.spec[d]))
+    return out.movedim(0, d).contiguous()
+
+
 @dataclasses.dataclass
 class TrainState:
     """What a step updates, in place: the f32 master parameters and EMA (by
     ``state_dict`` name), the optimizer, the gradient accumulator and the
-    counters. ``step`` counts micro-batches."""
+    counters. ``step`` counts micro-batches. Under FSDP (``shardings``) each
+    of those tensors is this rank's shard of the parameter's."""
 
     params: dict[str, torch.Tensor]
     ema_params: dict[str, torch.Tensor]
@@ -194,36 +249,64 @@ class TrainState:
     step: int = 0
     mini_step: int = 0  # micro-batches in the open accumulation window
     updates: int = 0    # optimizer updates so far
+    shardings: dict[str, Sharding] | None = None  # the FSDP layout; None: whole tensors
+
+    def local(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole tensor of parameter ``name``."""
+        return whole if self.shardings is None else self.shardings[name].shard(whole)
+
+    def gather(self, tree: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """The whole tensors of a ``{name: this rank's part}`` dict. Under
+        FSDP a collective: every rank of the mesh calls it."""
+        if self.shardings is None:
+            return tree
+        return {n: v if self.shardings[n].dim is None else _all_gather(self.shardings[n], v)
+                for n, v in tree.items()}
 
     def load(self, params, ema_params, step: int) -> None:
-        """Overwrite parameters, EMA and step count (checkpoint restore)."""
+        """Overwrite parameters, EMA and step count (checkpoint restore) from
+        whole tensors."""
         with torch.no_grad():
             for name, p in self.params.items():
-                p.copy_(params[name])
-                self.ema_params[name].copy_(ema_params[name])
+                p.copy_(self.local(name, params[name]))
+                self.ema_params[name].copy_(self.local(name, ema_params[name]))
         self.step = int(step)
 
 
-def create_train_state(config: TrainConfig, device="cuda",
-                       state_dict=None) -> tuple[UNet, TrainState]:
+def state_sharding_tree(mesh: Mesh | None, params: dict[str, torch.Tensor]
+                        ) -> dict[str, Sharding] | None:
+    """The FSDP layout of the state (JAX ``train.py:state_sharding_tree``):
+    with an ``fsdp`` axis larger than 1, :func:`~parallel.param_sharding` of
+    the parameters, which AdamW's moments, the EMA and the accumulator follow;
+    otherwise None, every tensor whole and only the batch split."""
+    if mesh is not None and mesh.shape.get("fsdp", 1) > 1:
+        return param_sharding(mesh, params, axis="fsdp")
+    return None
+
+
+def create_train_state(config: TrainConfig, device="cuda", state_dict=None,
+                       mesh: Mesh | None = None) -> tuple[UNet, TrainState]:
     """The compute model (in ``compute_dtype`` on ``device``) and a fresh
     :class:`TrainState`. Weights come from ``state_dict`` or, without one,
-    from ``utils.weights.init_params(config, config.seed)``."""
+    from ``utils.weights.init_params(config, config.seed)``. Under a mesh
+    with an ``fsdp`` axis the state holds this rank's shards."""
     from aliasfree_diffusion_models_pytorch_tpu_torch.utils.weights import init_params
 
     if state_dict is None:
         state_dict = init_params(config, config.seed)
     model = build_model(config, device=device, state_dict=state_dict)
     names = [name for name, _ in model.named_parameters()]
-    params = {n: state_dict[n].detach().to(device=device, dtype=torch.float32).clone()
-              for n in names}
+    whole = {n: state_dict[n].detach().to(device=device, dtype=torch.float32) for n in names}
+    shardings = state_sharding_tree(mesh, whole)
+    params = {n: (v if shardings is None else shardings[n].shard(v)).clone()
+              for n, v in whole.items()}
     ema = {n: p.clone() for n, p in params.items()}
     grad_acc = None
     if config.grad_accum > 1:
         grad_acc = [torch.zeros_like(p) for p in params.values()]
     return model, TrainState(params=params, ema_params=ema,
                              optimizer=make_optimizer(config, params.values()),
-                             grad_acc=grad_acc)
+                             grad_acc=grad_acc, shardings=shardings)
 
 
 class _StepInputs(GraphedStep):
@@ -260,7 +343,7 @@ class _StepInputs(GraphedStep):
 
 
 def make_train_step(model: UNet, config: TrainConfig, diffusion: Diffusion, *,
-                    graphs: bool = True) -> Callable:
+                    mesh: Mesh | None = None, graphs: bool = True) -> Callable:
     """Build the train step ``(state, batch, generator=None, labels=None,
     n_real=None, *, t=None, noise=None, keep=None) -> (state, loss)``.
 
@@ -273,6 +356,11 @@ def make_train_step(model: UNet, config: TrainConfig, diffusion: Diffusion, *,
     f32 tensor on the device (no host synchronisation happens in the step).
     On the card the step runs as CUDA graphs, one for each branch (see the
     module docstring); ``graphs=False`` runs it eagerly.
+
+    Under a ``mesh`` (see the module docstring) ``batch`` and ``labels`` are
+    this rank's rows, ``n_real`` counts the global batch's real rows, and
+    ``t``, ``noise`` and ``keep``, when given, are the global batch's; the
+    state is the one ``create_train_state(mesh=mesh)`` made.
     """
     model_params = [p for _, p in model.named_parameters()]
     device = model_params[0].device
@@ -281,39 +369,109 @@ def make_train_step(model: UNet, config: TrainConfig, diffusion: Diffusion, *,
     label_dropout = config.label_dropout
     signatures: dict[tuple, _StepInputs] = {}
     bound_state: TrainState | None = None  # the state the step reads
+    if mesh is not None:
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) or mesh.size != world()[1]:
+            raise ValueError(f"a step on a mesh of {mesh.size} ranks needs torch.distributed "
+                             f"running with as many (it runs {world()[1]})")
+        if mesh.group(None) is None:
+            mesh.build_groups()  # every rank makes its step, so every rank gets here
+    # This rank's rows of the global batch: part `position` of `parts` (one
+    # process: the whole batch).
+    parts, position = 1, 0
+    if mesh is not None:
+        rows = batch_sharding(mesh, 1, axis=mesh.axis_names)
+        parts, position = rows.parts(), rows.index()
 
     def loss_fn(inp: _StepInputs, generator):
         batch = inp.batch
         n = batch.shape[0]
-        t = inp.t if inp.t is not None else diffusion.sample_timesteps(n, generator)
-        x_t, noise = diffusion.noise_images(batch, t, generator, noise=inp.noise)
+        # The global batch's draws, in the single-device order; this rank's rows.
+        mine = slice(position * n, (position + 1) * n)
+        t = inp.t if inp.t is not None else diffusion.sample_timesteps(n * parts, generator)
+        noise = inp.noise
+        if noise is None:
+            noise = torch.randn((n * parts,) + tuple(batch.shape[1:]), generator=generator,
+                                dtype=batch.dtype, device=batch.device)
+        t = t[mine]
+        x_t, noise = diffusion.noise_images(batch, t, generator, noise=noise[mine])
         if inp.labels is None:
             pred = model(x_t, t)
         elif label_dropout > 0.0:
             # CFG training: drop the conditioning on a per-sample coin flip.
             keep = inp.keep
             if keep is None:
-                keep = (torch.rand((n,), generator=generator, device=batch.device)
+                keep = (torch.rand((n * parts,), generator=generator, device=batch.device)
                         >= label_dropout).float()
-            pred = model(x_t, t, inp.labels, keep)
+            pred = model(x_t, t, inp.labels, keep[mine])
         else:
             pred = model(x_t, t, inp.labels)
         per_sample = ((noise - pred.float()) ** 2).mean(dim=(1, 2, 3))
         if inp.n_real is None:
-            return per_sample.mean()
-        # Padded duplicates at the end of the batch are masked out, so every
-        # real sample is weighted once.
-        mask = (torch.arange(n, device=batch.device) < inp.n_real).float()
+            return per_sample.mean() / parts  # this rank's share of the global mean
+        # Padded duplicates at the end of the batch are masked out by their
+        # global row, so every real sample is weighted once.
+        first = position * n
+        mask = (torch.arange(first, first + n, device=batch.device) < inp.n_real).float()
         return (per_sample * mask).sum() / inp.n_real
 
+    def reduce(state: TrainState, grads: list, loss: torch.Tensor):
+        """Sum the ranks' gradients and loss shares: whole gradients and the
+        loss in one all-reduce over the mesh; under FSDP each sharded
+        gradient reduce-scattered over ``fsdp``, then all-reduced over
+        ``data``. Returns this rank's gradients (shards under FSDP) and the
+        global loss."""
+        import torch.distributed as dist
+
+        names = list(state.params)
+        sharded = [i for i, n in enumerate(names)
+                   if state.shardings is not None and state.shardings[n].dim is not None]
+        whole = [i for i in range(len(names)) if i not in set(sharded)]
+        out = list(grads)
+        flat = torch.empty(sum(grads[i].numel() for i in whole) + 1, dtype=torch.float32,
+                           device=loss.device)
+        views = [v.view(grads[i].shape) for i, v in zip(
+            whole, flat[:-1].split([grads[i].numel() for i in whole]))]
+        torch._foreach_copy_(views, [grads[i] for i in whole])
+        flat[-1:].copy_(loss.detach().reshape(1))
+        dist.all_reduce(flat, group=mesh.group(None))
+        for i, v in zip(whole, views):
+            out[i] = v
+        if sharded:
+            for i in sharded:
+                out[i] = _reduce_scatter(state.shardings[names[i]], grads[i])
+            if mesh.shape.get("data", 1) > 1:
+                buf = torch.cat([out[i].reshape(-1) for i in sharded])
+                dist.all_reduce(buf, group=mesh.group("data"))
+                for i, v in zip(sharded, buf.split([out[i].numel() for i in sharded])):
+                    out[i] = v.view(out[i].shape)
+        return out, flat[-1], sharded
+
+    def global_norm(grads: list, sharded: list) -> torch.Tensor:
+        """The global norm of the gradients; under FSDP the shards' squares
+        are summed over ``fsdp``."""
+        if not sharded:
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        import torch.distributed as dist
+
+        def squares(tensors):
+            return torch.stack(torch._foreach_norm(tensors)).square().sum()
+
+        part = squares([grads[i] for i in sharded]).reshape(1)
+        dist.all_reduce(part, group=mesh.group("fsdp"))
+        whole = [g for i, g in enumerate(grads) if i not in set(sharded)]
+        return torch.sqrt(squares(whole) + part[0])
+
     def run(inp: _StepInputs, variant) -> None:
-        """One micro-batch at ``position`` of the accumulation window; the
-        last position updates, with the EMA copying or blending."""
-        position, ema_copy = variant
+        """One micro-batch at place ``window`` of the accumulation window;
+        the last place updates, with the EMA copying or blending."""
+        window, ema_copy = variant
         state = bound_state
         masters = list(state.params.values())
         with torch.no_grad():
-            torch._foreach_copy_(model_params, masters)  # f32 masters → compute dtype
+            # f32 masters (gathered whole under FSDP) → compute dtype
+            torch._foreach_copy_(model_params, list(state.gather(state.params).values()))
         for p in model_params:
             p.grad = None
         loss = loss_fn(inp, inp.generator)
@@ -322,18 +480,20 @@ def make_train_step(model: UNet, config: TrainConfig, diffusion: Diffusion, *,
             # A parameter the graph never reaches (the label embedding in a step
             # without labels) gets a zero gradient, so that weight decay still
             # acts on it, as it does under optax.
-            grads = [torch.zeros_like(m) if p.grad is None else p.grad.float()
-                     for p, m in zip(model_params, masters)]
+            grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float()
+                     for p in model_params]
+            sharded = []
+            if mesh is not None:
+                grads, loss, sharded = reduce(state, grads, loss)
             if grad_accum > 1:
-                # Running mean over the window: acc += (g − acc) / (position + 1).
+                # Running mean over the window: acc += (g − acc) / (window + 1).
                 torch._foreach_sub_(grads, state.grad_acc)
-                torch._foreach_div_(grads, float(position + 1))
+                torch._foreach_div_(grads, float(window + 1))
                 torch._foreach_add_(state.grad_acc, grads)
                 grads = state.grad_acc
-            if position == grad_accum - 1:
+            if window == grad_accum - 1:
                 if clip is not None:
-                    norm = torch.linalg.vector_norm(
-                        torch.stack(torch._foreach_norm(grads)))
+                    norm = global_norm(grads, sharded)
                     torch._foreach_mul_(grads, clip / torch.clamp(norm, min=clip))
                 for m, g in zip(masters, grads):
                     m.grad = g
@@ -360,25 +520,26 @@ def make_train_step(model: UNet, config: TrainConfig, diffusion: Diffusion, *,
                                  "of its first calls: make a new step for another state")
             bound_state = state
         key = (tuple(batch.shape), labels is None, n_real is None, t is None, noise is None,
-               keep is None, fg_impl_override())
+               keep is None, fg_impl_override(), gelu_mode())
         inp = signatures.get(key)
         if inp is None:
             inp = signatures[key] = _StepInputs(batch, labels, n_real, t, noise, keep, device,
                                                 run, graphs)
         inp.fill(batch, labels, n_real, t, noise, keep)
-        position = state.mini_step if grad_accum > 1 else 0
-        emit = position == grad_accum - 1
+        window = state.mini_step if grad_accum > 1 else 0
+        emit = window == grad_accum - 1
         if emit:
             _set_lr(state.optimizer, lr_at(config, state.updates))
         with inp.drawing_from(generator):
-            inp((position, use_ema and emit and state.step < STEP_START_EMA))
+            inp((window, use_ema and emit and state.step < STEP_START_EMA))
         if grad_accum > 1:
-            state.mini_step = 0 if emit else position + 1
+            state.mini_step = 0 if emit else window + 1
         if emit:
             state.updates += 1
         state.step += 1
         return state, inp.loss.clone()
 
+    step_fn.signatures = signatures  # signature -> its static buffers and graphs
     return step_fn
 
 
@@ -388,11 +549,20 @@ def step_generator(generator: torch.Generator, seed: int, index: int) -> torch.G
     return generator.manual_seed(((int(seed) + 1) << 32) + int(index))
 
 
-def _staged(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A batch as the step takes it: in pinned host memory for the card (the
-    step copies it into its static buffer without waiting), else on the CPU."""
-    tensor = torch.from_numpy(np.ascontiguousarray(array))
-    return tensor.pin_memory() if device.type == "cuda" else tensor
+def train_mesh(config: TrainConfig) -> Mesh | None:
+    """The mesh :func:`train` builds on its own: None for one process; when
+    torch.distributed runs more ranks, ``config.mesh_shape`` over
+    ``config.mesh_axes`` where it covers them, else every rank on ``data``
+    (the JAX package's default), for a batch that divides the ranks."""
+    size = world()[1]
+    if size == 1:
+        return None
+    if math.prod(config.mesh_shape) == size:
+        return make_mesh(tuple(config.mesh_shape), tuple(config.mesh_axes))
+    if config.batch_size % size != 0:
+        raise ValueError(f"batch_size={config.batch_size} does not divide the {size} ranks: "
+                         "pick a divisible batch size, or a config.mesh_shape over them")
+    return make_mesh()
 
 
 def train(
@@ -403,6 +573,7 @@ def train(
     device="cuda",
     resume: bool = False,
     profile_dir: str | None = None,
+    mesh: Mesh | None = None,
 ) -> list[float]:
     """Full training run on ``device``; returns the per-epoch mean losses.
 
@@ -411,12 +582,23 @@ def train(
     beside it, ``runs/<run>/metrics.jsonl``. ``profile_dir`` captures a
     ``torch.profiler`` trace (host and device) of this call's steps
     ``PROFILE_STEPS`` as ``<profile_dir>/trace_<run>.json``, a Chrome trace.
+
+    Under torch.distributed with more than one rank the run steps on a mesh
+    (``mesh``, or :func:`train_mesh`'s): every rank walks the same global
+    batches and steps its rows; a trailing batch that does not divide the
+    mesh is padded by repeating its leading samples, masked out of the loss.
+    Rank 0 alone writes the artifacts and traces its steps; the checkpoint
+    holds the whole state (gathered under FSDP), so a single-device run
+    resumes it.
     """
+    from aliasfree_diffusion_models_pytorch_tpu_torch.impl_flags import impl_report
     from aliasfree_diffusion_models_pytorch_tpu_torch.utils import checkpoint as ckpt_lib
     from aliasfree_diffusion_models_pytorch_tpu_torch.utils.io import save_image_grid
-    from aliasfree_diffusion_models_pytorch_tpu_torch.utils.native import native_status
 
     device = torch.device(device)
+    if mesh is None:
+        mesh = train_mesh(config)
+    writer = world()[0] == 0
     if resume:
         config = recover_stored_config(config, root)
     if config.lr_schedule != "constant" and config.lr_total_steps is None:
@@ -428,7 +610,7 @@ def train(
             lr_total_steps=max(1, config.epochs * steps_per_epoch // config.grad_accum),
         )
         logger.info("lr_total_steps derived: %d updates", config.lr_total_steps)
-    model, state = create_train_state(config, device=device)
+    model, state = create_train_state(config, device=device, mesh=mesh)
     ckpt_path = config.checkpoint_path(root)
     first_epoch = 0
     if resume and os.path.exists(ckpt_path + ".npz"):
@@ -456,15 +638,16 @@ def train(
         img_size=config.image_size,
         device=device,
     )
-    step_fn = make_train_step(model, config, diffusion)
+    step_fn = make_train_step(model, config, diffusion, mesh=mesh)
 
-    os.makedirs(config.results_dir(root), exist_ok=True)
-    os.makedirs(config.model_dir(root), exist_ok=True)
-    os.makedirs(config.runs_dir(root), exist_ok=True)
-    # The full config beside the checkpoint: restore-time model construction
-    # recovers shape knobs like base_width from it.
-    with open(os.path.join(config.model_dir(root), "config.json"), "w") as f:
-        f.write(config.to_json())
+    if writer:
+        os.makedirs(config.results_dir(root), exist_ok=True)
+        os.makedirs(config.model_dir(root), exist_ok=True)
+        os.makedirs(config.runs_dir(root), exist_ok=True)
+        # The full config beside the checkpoint: restore-time model
+        # construction recovers shape knobs like base_width from it.
+        with open(os.path.join(config.model_dir(root), "config.json"), "w") as f:
+            f.write(config.to_json())
     metrics_path = os.path.join(config.runs_dir(root), "metrics.jsonl")
 
     # The host-side gather of the next batch overlaps the device step.
@@ -477,18 +660,21 @@ def train(
     global_step = state.step
     run_step = 0  # steps of this call: the profiler's window counts these
     profiler = None
-    with open(metrics_path, "a") as metrics_f:
-        metrics_f.write(json.dumps({
-            "run_header": config.run_name,
-            "variant": config.variant,
-            "epochs": config.epochs,
-            "resumed_step": state.step,
-            "first_epoch": first_epoch,
-            "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
-                       else str(device)),
-            # host-side CSV parsing and batch gather: the C++ binding or numpy
-            "native_loader": native_status(),
-        }) + "\n")
+    header = {
+        "run_header": config.run_name,
+        "variant": config.variant,
+        "epochs": config.epochs,
+        "resumed_step": state.step,
+        "first_epoch": first_epoch,
+        "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                   else str(device)),
+        # the implementation choices in effect (the JAX package's header
+        # carries its own); native_loader among them: the C++ binding or numpy
+        "impl": impl_report(mesh, graphs=device.type == "cuda"),
+    }
+    with (open(metrics_path, "a") if writer else contextlib.nullcontext()) as metrics_f:
+        if writer:
+            metrics_f.write(json.dumps(header) + "\n")
         for epoch in range(first_epoch, first_epoch + config.epochs):
             logger.info("Starting epoch %d:", epoch)
             # Losses stay on the device until the epoch ends: a per-step
@@ -496,16 +682,26 @@ def train(
             epoch_losses: list[torch.Tensor] = []
             t_start, imgs = time.perf_counter(), 0
             for images, lbls in dataloader:
-                batch = _staged(images, device)
-                labels = None
-                if config.num_classes:
-                    labels = _staged(np.asarray(lbls, dtype=np.int64), device)
-                if profile_dir is not None and run_step == PROFILE_STEPS[0]:
+                lbls = np.asarray(lbls, dtype=np.int64) if config.num_classes else None
+                n_real = None
+                if mesh is not None and images.shape[0] % mesh.size:
+                    # Pad the trailing partial batch up to a size the mesh
+                    # divides by repeating its leading samples; n_real masks
+                    # the duplicates out of the loss.
+                    n_real = images.shape[0]
+                    pad = mesh.size - n_real % mesh.size
+                    images = np.concatenate([images, images[:pad]], axis=0)
+                    if lbls is not None:
+                        lbls = np.concatenate([lbls, lbls[:pad]], axis=0)
+                batch = put_global_batch(mesh, images, device=device)
+                labels = None if lbls is None else put_global_batch(mesh, lbls, device=device)
+                if profile_dir is not None and writer and run_step == PROFILE_STEPS[0]:
                     profiler = _start_profiler()
                 state, loss = step_fn(
-                    state, batch, step_generator(generator, config.seed, global_step), labels)
+                    state, batch, step_generator(generator, config.seed, global_step), labels,
+                    n_real)
                 epoch_losses.append(loss)
-                imgs += images.shape[0]
+                imgs += n_real or images.shape[0]
                 global_step += 1
                 run_step += 1
                 if profiler is not None and run_step == PROFILE_STEPS[1]:
@@ -517,29 +713,33 @@ def train(
                     rate = imgs / max(dt, 1e-9)
                     logger.info("epoch %d step %d loss %.4f (%.1f imgs/s)",
                                 epoch, global_step, loss_value, rate)
-                    metrics_f.write(json.dumps({
-                        "epoch": epoch, "step": global_step, "loss": loss_value,
-                        "imgs_per_sec": round(rate, 1), "wall_s": round(dt, 2),
-                    }) + "\n")
-                    metrics_f.flush()
+                    if writer:
+                        metrics_f.write(json.dumps({
+                            "epoch": epoch, "step": global_step, "loss": loss_value,
+                            "imgs_per_sec": round(rate, 1), "wall_s": round(dt, 2),
+                        }) + "\n")
+                        metrics_f.flush()
             loss_all.append(float(torch.stack(epoch_losses).mean()) if epoch_losses else 0.0)
 
+            # Under FSDP every rank takes part in the gathers; rank 0 writes.
             if config.image_gen_n > 0:
-                weights = state.ema_params if config.use_ema else state.params
-                with torch.no_grad():
-                    torch._foreach_copy_([p for _, p in model.named_parameters()],
-                                         list(weights.values()))
-                # Epoch sampling draws from its own index range, above every
-                # per-step index.
-                final, _ = diffusion.sample(
-                    model, n=config.image_gen_n, image_channels=config.image_channels,
-                    generator=step_generator(generator, config.seed, 2**31 + epoch))
-                save_image_grid(final.cpu().numpy(),
-                                os.path.join(config.results_dir(root), f"{epoch}.jpg"))
+                weights = state.gather(state.ema_params if config.use_ema else state.params)
+                if writer:
+                    with torch.no_grad():
+                        torch._foreach_copy_([p for _, p in model.named_parameters()],
+                                             list(weights.values()))
+                    # Epoch sampling draws from its own index range, above
+                    # every per-step index.
+                    final, _ = diffusion.sample(
+                        model, n=config.image_gen_n, image_channels=config.image_channels,
+                        generator=step_generator(generator, config.seed, 2**31 + epoch))
+                    save_image_grid(final.cpu().numpy(),
+                                    os.path.join(config.results_dir(root), f"{epoch}.jpg"))
+            params, ema = state.gather(state.params), state.gather(state.ema_params)
             opt_state = (ckpt_lib.opt_state_arrays(config, state)
                          if config.checkpoint_opt_state else None)
-            ckpt_lib.save_checkpoint(ckpt_path, state.params, state.ema_params, state.step,
-                                     opt_state)
+            if writer:
+                ckpt_lib.save_checkpoint(ckpt_path, params, ema, state.step, opt_state)
     if profiler is not None:  # the run ended inside the window
         _stop_profiler(profiler, profile_dir, config.run_name, device)
     return loss_all

@@ -52,14 +52,17 @@ def _adamw_prefix(config) -> str:
 
 def opt_state_arrays(config, state) -> dict[str, np.ndarray]:
     """The optimizer of a ``train.TrainState`` as flat optax keys (without
-    the ``opt_state/`` prefix), for ``config``'s optimizer form."""
+    the ``opt_state/`` prefix), for ``config``'s optimizer form; whole
+    tensors, gathered from the ranks' shards under FSDP."""
     chain = _adamw_prefix(config)
     names = list(state.params)
     per_param = [state.optimizer.state.get(state.params[n], {}) for n in names]
 
     def tree(key: str) -> dict:
-        return params_to_jax({n: (s[key] if key in s else torch.zeros_like(state.params[n]))
-                              for n, s in zip(names, per_param)})
+        # whole tensors: under FSDP a gather, which every rank calls
+        return params_to_jax(state.gather(
+            {n: (s[key] if key in s else torch.zeros_like(state.params[n]))
+             for n, s in zip(names, per_param)}))
 
     count = np.asarray(state.updates, np.int32)
     flat = {f"{chain}0/.count": count,
@@ -71,14 +74,15 @@ def opt_state_arrays(config, state) -> dict[str, np.ndarray]:
         flat[".mini_step"] = np.asarray(state.mini_step, np.int32)
         flat[".gradient_step"] = count
         flat.update(_flatten({".acc_grads": {"params": params_to_jax(
-            dict(zip(names, state.grad_acc)))}}))
+            state.gather(dict(zip(names, state.grad_acc))))}}))
     return flat
 
 
 def load_opt_state(config, state, flat: Mapping[str, np.ndarray]) -> None:
     """Set a ``train.TrainState``'s AdamW moments and step, its update count
     and (with ``grad_accum``) its open accumulation window from flat optax
-    keys (without the ``opt_state/`` prefix), written by either package."""
+    keys (without the ``opt_state/`` prefix), written by either package;
+    under FSDP each rank takes its shards."""
     chain = _adamw_prefix(config)
     key = f"{chain}0/.count"
     if key not in flat:
@@ -89,15 +93,15 @@ def load_opt_state(config, state, flat: Mapping[str, np.ndarray]) -> None:
     nu = state_from_flat(flat, f"{chain}0/.nu/")
     names = list(state.params)
     sd = state.optimizer.state_dict()
-    sd["state"] = {i: {"step": torch.tensor(float(count)), "exp_avg": mu[n],
-                       "exp_avg_sq": nu[n]} for i, n in enumerate(names)}
+    sd["state"] = {i: {"step": torch.tensor(float(count)), "exp_avg": state.local(n, mu[n]).clone(),
+                       "exp_avg_sq": state.local(n, nu[n]).clone()} for i, n in enumerate(names)}
     state.optimizer.load_state_dict(sd)
     state.updates = count
     if config.grad_accum > 1:
         acc = state_from_flat(flat, ".acc_grads/")
         with torch.no_grad():
             for buf, n in zip(state.grad_acc, names):
-                buf.copy_(acc[n])
+                buf.copy_(state.local(n, acc[n]))
         state.mini_step = int(flat[".mini_step"])
 
 

@@ -41,6 +41,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    forward equal to the plain version element for element, with the
    instantiation the kernels launched at each shape), bf16 timed beside its
    bound, the plain version and the conv form, and summed per train step;
+3b. holds the filtered-GELU pair against its plain version under each
+   ``AFDM_GELU`` mode (unset: the degree-15 polynomial; ``poly13``; ``exact``:
+   the erf form) at every shape of the 32-px bf16 step (forward equal element
+   for element, backward within 2^-6 of its largest entry), times it per step
+   in each mode, lists the registers and spills of each mode's
+   instantiations, and runs the graphed 32-px step at batch 256 in the
+   default mode and then under ``poly13``, which must capture graphs of its
+   own;
 4. runs the full-width Config-D UNet forward (n=16) in f32 on the card
    against the same weights on the CPU (TF32 off), and in bf16, counting 6
    attention launches per forward and the filtered-GELU launches (the conv
@@ -81,6 +89,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
    parameters' movement); the f32 step graphed and eager bit-equal over six
    steps under deterministic algorithms, and the capturable AdamW against
    the plain one;
+7c. (phase 6c) starts torch.distributed over NCCL with this process as its
+   only rank and runs the graphed 32-px Config-D bf16 step at batch 256 on a
+   ``data`` mesh and on an ``fsdp`` mesh of size 1, in turns with the
+   single-device step (ms per step, whether the graphs captured the
+   collective, the first loss bit-equal, the parameters within ten times the
+   difference of two single runs: dQ's atomics keep those from being
+   bit-equal), the f32
+   step on both meshes bit-equal to the single one over six steps under
+   deterministic algorithms, the CLI ``train`` (its ``metrics.jsonl`` header's
+   ``impl``, rank 0's checkpoint) and ``run`` (the ``impl.*`` lines of its
+   settings file) under that process group, and ``sample`` with the JAX
+   CLI's training flags (``--batch-size 16``);
 8. drives the study path through the CLI in a scratch ``--root``: ``probe
    exp`` and ``probe headpack``; ``run`` (the whole ``ddpm_run`` pipeline at
    batch 256, 200 noise steps, 32 generated PNGs); ``rotate`` and ``shift``
@@ -96,7 +116,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and ``--reuse-generated`` (the metrics recomputed equal); the grid's own
    D-2N training traced over its steps 10-19 (attention's share of the
    device time and of the wall); ``train`` on a 64-row MNIST CSV (the run
-   header must read ``native_loader: loaded``) and the loader's permutation
+   header's ``impl.native_loader`` must read ``loaded``) and the loader's permutation
    and batch gather timed, C++ binding against numpy; exact resume in f32 with
    ``--checkpoint-opt-state`` (2 epochs against 1 + a resumed 1); ``train
    --profile-dir`` over 25 steps (the trace must name both kernels); the
@@ -1597,11 +1617,12 @@ def phase_grid(fa, cli) -> dict:
     wall = time.perf_counter() - t0
     with open(os.path.join(mnist_root, "runs", "DDPM_Uncondtional_MNIST_3", "metrics.jsonl")) as f:
         header = json.loads(f.readline())
-    check(header["native_loader"] == "loaded", f"MNIST CSV: native_loader {header['native_loader']}")
+    native_loader = header["impl"]["native_loader"]
+    check(native_loader == "loaded", f"MNIST CSV: native_loader {native_loader}")
     check(counts() == (24, 24), f"MNIST CSV: launches {counts()}")
-    log(f"  train on a 64-row MNIST CSV: {wall:.2f} s, native_loader {header['native_loader']}, "
+    log(f"  train on a 64-row MNIST CSV: {wall:.2f} s, native_loader {native_loader}, "
         f"launches {list(counts())}")
-    results["mnist_csv"] = dict(wall_s=wall, native_loader=header["native_loader"],
+    results["mnist_csv"] = dict(wall_s=wall, native_loader=native_loader,
                                 launches=list(counts()), loader_us=time_loader(data, native))
 
     # Exact resume in f32: 2 epochs straight against 1 + a resumed 1.
@@ -2181,6 +2202,307 @@ def phase_graphs(fa, rs, weights, unet_mod, config, fg: int) -> dict:
     return results
 
 
+# Phase 2f: the filtered-GELU pair under each AFDM_GELU mode (None: unset, the
+# degree-15 polynomial on bf16; poly13; exact, the erf form), at every shape
+# of the 32-px bf16 train step, against its plain version (the same limits as
+# phase 2e: the bf16 forward equal element for element, the backward within
+# 2^-6 of its largest entry), timed per step; then one graphed 32-px Config-D
+# bf16 train step at batch 256 under poly13 after the default mode, which
+# must take a signature of its own and capture its own graphs.
+GELU_MODES = (None, "poly13", "exact")
+
+
+def _set_gelu_mode(mode) -> None:
+    if mode is None:
+        os.environ.pop("AFDM_GELU", None)
+    else:
+        os.environ["AFDM_GELU"] = mode
+
+
+def phase_gelu_modes(rs, fgres, ptxas, config) -> dict:
+    """The kernel pair in every GELU mode at the 32-px step's shapes, its
+    registers and spills per mode, and the graphed step under poly13."""
+    import dataclasses
+
+    from aliasfree_diffusion_models_pytorch_tpu_torch import train as train_mod
+    from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
+
+    k = config.filters.kernel_size
+    from aliasfree_diffusion_models_pytorch_tpu_torch.models import blocks
+
+    up, down = (torch.from_numpy(t).cuda().bfloat16() for t in blocks.design_taps(config.filters))
+    shapes = fgres["steps"]["32px_w32_b256"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    inputs = [((2 * torch.randn(e["shape"], generator=gen, device="cuda")).bfloat16(),
+               torch.randn(e["shape"], generator=gen, device="cuda").bfloat16(), e["calls"])
+              for e in shapes]
+    modes = {}
+    try:
+        for mode in GELU_MODES:
+            _set_gelu_mode(mode)
+            form = rs.gelu_form(torch.bfloat16)
+            row = dict(mode=mode or "unset", form=form, fwd_ms=0.0, bwd_ms=0.0, fwd_differ=0,
+                       bwd_rel=0.0)
+            for x, g, calls in inputs:
+                y, dx = rs.filtered_gelu_fwd(x, up, down), rs.filtered_gelu_bwd(x, up, down, g)
+                xg = x.clone().requires_grad_()
+                ref = rs.filtered_gelu_phases(xg, up, down)
+                (ref_dx,) = torch.autograd.grad(ref, xg, g)
+                differ = int((y != ref).sum())
+                _, rel = errors(dx, ref_dx)
+                tag = f"AFDM_GELU={mode or 'unset'} {tuple(x.shape)}"
+                check(differ == 0, f"filtered_gelu {tag}: {differ} forward elements differ")
+                check(rel <= FG_REL_TOL[torch.bfloat16][1] and bool(torch.isfinite(dx).all()),
+                      f"filtered_gelu {tag}: backward {rel} of its largest entry")
+                row["fwd_differ"] += differ
+                row["bwd_rel"] = max(row["bwd_rel"], rel)
+                row["fwd_ms"] += calls * device_ms(lambda: rs.filtered_gelu_fwd(x, up, down),
+                                                   iters=10, per_call={"filtered_gelu_fwd": 1})
+                row["bwd_ms"] += calls * device_ms(lambda: rs.filtered_gelu_bwd(x, up, down, g),
+                                                   iters=10, per_call={"filtered_gelu_bwd": 1})
+                del y, dx, xg, ref, ref_dx
+            row["ms"] = row["fwd_ms"] + row["bwd_ms"]
+            index = str(rs.FG_GELU_FORMS.index(form))
+            row["ptxas"] = [e for e in ptxas if e["library"] == "filtered_gelu"
+                            and "bf16" in e["kernel"] and e["kernel"].endswith(f", {index}>")]
+            check(row["ptxas"] and not any(e["spill_stores"] + e["spill_loads"]
+                                           for e in row["ptxas"]),
+                  f"filtered_gelu {form}: instantiations missing or spilling")
+            side32 = {e["kernel"].split("<")[0]: e["registers"] for e in row["ptxas"]
+                      if e["kernel"].endswith(f"<bf16, {k}, 32, 8, {index}>")}
+            row["registers_side32"] = side32
+            modes[row["mode"]] = row
+            log(f"  AFDM_GELU={row['mode']:<6} ({form}): 32-px step's {sum(c for *_, c in inputs)}"
+                f" calls, forward + backward {row['ms']:.3f} ms ({row['fwd_ms']:.3f} + "
+                f"{row['bwd_ms']:.3f}), 0 forward elements differ, backward "
+                f"{row['bwd_rel']:.1e} of its largest entry; side-32 registers {side32}; "
+                f"{len(row['ptxas'])} bf16 instantiations, no spill")
+    finally:
+        _set_gelu_mode(None)
+    step_2e = fgres["per_step"]["32px_w32_b256"]
+    log(f"  (phase 2e's default-mode pair in this run: "
+        f"{step_2e['fwd_ms'] + step_2e['bwd_ms']:.3f} ms a step)")
+
+    # The graphed step: the default mode, then poly13 on the same step.
+    cfg = dataclasses.replace(config, batch_size=256, run_name="gelu_modes")
+    model, state = train_mod.create_train_state(cfg, device="cuda")
+    step_fn = train_mod.make_train_step(model, cfg, Diffusion(noise_steps=1000, img_size=32,
+                                                              device="cuda"))
+    batch = torch.from_numpy(np.random.default_rng(6).uniform(
+        -1, 1, (256, 32, 32, 3)).astype(np.float32)).cuda()
+    gen = torch.Generator(device="cuda")
+    graphed = {}
+    try:
+        for mode in (None, "poly13"):
+            _set_gelu_mode(mode)
+            rs.filtered_gelu_fwd.launches = 0
+            for i in range(4):  # warm-up, capture, two replays
+                state, loss = step_fn(state, batch, train_mod.step_generator(gen, 0, i))
+            final = loss.item()
+            check(math.isfinite(final), f"graphed step under {mode}: loss {final}")
+            graphed[mode or "unset"] = dict(loss=final, fg_launches=rs.filtered_gelu_fwd.launches)
+    finally:
+        _set_gelu_mode(None)
+    sigs = list(step_fn.signatures.values())
+    check(len(sigs) == 2 and all(s.captured for s in sigs),
+          f"graphed step: {len(sigs)} signatures for two GELU modes, captured "
+          f"{[s.captured for s in sigs]}")
+    log(f"  graphed 32-px Config-D bf16 step at batch 256: default mode then poly13, "
+        f"{len(sigs)} signatures, each captured ({[s.captured for s in sigs]}); losses "
+        f"{graphed}")
+    del model, state, step_fn, batch, inputs
+    _free_device_memory()
+    return dict(modes=modes, default_2e_ms=step_2e["fwd_ms"] + step_2e["bwd_ms"],
+                graphed_step=graphed, signatures=len(sigs))
+
+
+# Phase 6c: the step on a one-rank NCCL mesh (torch.distributed with this
+# process as rank 0 of 1), graphed: the 32-px Config-D bf16 step at batch 256
+# on a data mesh and on an fsdp mesh of size 1, in turns with the
+# non-distributed step (single, data, fsdp, single again) over six steps
+# each; the f32 step (batch 64, deterministic algorithms) bit-equal to the
+# non-distributed one over six steps; the CLI train and run under the process
+# group; the CLI sample with the JAX CLI's training flags.
+DIST_STEPS = 6
+# The bf16 mesh step's mean |parameter difference| from the single step: at
+# most ten times that of two single runs, or 1e-4 of the parameters' movement
+# where those happen to agree more closely.
+DIST_SPREAD_TIMES, DIST_FLOOR_SHARE = 10.0, 1e-4
+
+
+def phase_distributed(fa, rs, cli, config) -> dict:
+    import dataclasses
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+
+    from aliasfree_diffusion_models_pytorch_tpu_torch import train as train_mod
+    from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
+    from aliasfree_diffusion_models_pytorch_tpu_torch.parallel import make_mesh
+    from aliasfree_diffusion_models_pytorch_tpu_torch.parallel.multihost import init_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    check(init_distributed(f"tcp://localhost:{port}", 1, 0), "init_distributed")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "NCCL world of one")
+    meshes = {"single": None, "data": make_mesh(), "fsdp": make_mesh((1, 1), ("data", "fsdp"))}
+    out: dict = {"backend": dist.get_backend(), "world_size": dist.get_world_size()}
+    try:
+        def run_steps(cfg, mesh, batch, start=None):
+            model, state = train_mod.create_train_state(cfg, device="cuda", mesh=mesh)
+            if start is not None:
+                start.update({k: v.clone() for k, v in state.params.items()})
+            step_fn = train_mod.make_train_step(
+                model, cfg, Diffusion(noise_steps=1000, img_size=32, device="cuda"), mesh=mesh)
+            gen = torch.Generator(device="cuda")
+            losses = []
+            for i in range(DIST_STEPS):
+                if i == 3:  # warm-up and capture done: the replays are timed
+                    losses[-1].item()
+                    t0 = time.perf_counter()
+                state, loss = step_fn(state, batch, train_mod.step_generator(gen, 0, i))
+                losses.append(loss)
+            final = losses[-1].item()
+            step_ms = (time.perf_counter() - t0) / (DIST_STEPS - 3) * 1e3
+            captured = [s.captured for s in step_fn.signatures.values()]
+            params = {k: v.clone() for k, v in state.params.items()}
+            del model, state, step_fn
+            _free_device_memory()
+            return torch.stack(losses), params, step_ms, captured, final
+
+        # bf16 at batch 256, in turns
+        cfg = dataclasses.replace(config, batch_size=256, run_name="dist")
+        batch = torch.from_numpy(np.random.default_rng(7).uniform(
+            -1, 1, (256, 32, 32, 3)).astype(np.float32)).cuda()
+        bf16, start = {}, {}
+        for name in ("single", "data", "fsdp", "single_again"):
+            mesh = meshes[name.replace("_again", "")]
+            fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+            losses, params, step_ms, captured, final = run_steps(
+                cfg, mesh, batch, start if name == "single" else None)
+            check(math.isfinite(final), f"{name} step: loss {final}")
+            check(all(captured) and len(captured) == 1,
+                  f"{name} step: captured variants {captured}")
+            check((fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+                  == (6 * DIST_STEPS, 6 * DIST_STEPS),
+                  f"{name} step: attention launches {fa.flash_attention_fwd.launches}")
+            bf16[name] = dict(step_ms=step_ms, losses=losses, params=params, captured=captured)
+        spread, _ = param_difference(bf16["single"]["params"], bf16["single_again"]["params"])
+        movement, _ = param_difference(bf16["single"]["params"], start)
+        rows = {}
+        for name in ("data", "fsdp"):
+            diff, diff_max = param_difference(bf16[name]["params"], bf16["single"]["params"])
+            first_equal = bool(torch.equal(bf16[name]["losses"][0], bf16["single"]["losses"][0]))
+            check(first_equal, f"bf16 {name} step: first loss differs from the single step's")
+            # dQ's atomics make the bf16 step differ run to run: the mesh step is
+            # held to that spread of the single step's own two runs.
+            limit = max(DIST_SPREAD_TIMES * spread, DIST_FLOOR_SHARE * movement)
+            check(spread <= BF16_STEP_SHARE * movement and diff <= limit,
+                  f"bf16 {name} step: {diff} from the single step (limit {limit}), single "
+                  f"runs {spread} apart, movement {movement}")
+            rows[name] = dict(step_ms=bf16[name]["step_ms"], vs_single_mean=diff,
+                              vs_single_max=diff_max, vs_single_limit=limit,
+                              first_loss_equal=first_equal,
+                              graphs_held_collective=all(bf16[name]["captured"]))
+        out["bf16_b256"] = dict(single_ms=bf16["single"]["step_ms"],
+                                single_again_ms=bf16["single_again"]["step_ms"],
+                                single_spread_mean=spread, movement_mean=movement, **rows)
+        log(f"  bf16 32-px Config-D step at batch 256, graphed, {DIST_STEPS} steps (the last "
+            f"{DIST_STEPS - 3} timed): single {bf16['single']['step_ms']:.2f} ms, data mesh "
+            f"{rows['data']['step_ms']:.2f} ms, fsdp mesh {rows['fsdp']['step_ms']:.2f} ms, "
+            f"single again {bf16['single_again']['step_ms']:.2f} ms; the graphs held the "
+            f"collective: data {rows['data']['graphs_held_collective']}, fsdp "
+            f"{rows['fsdp']['graphs_held_collective']}; first loss bit-equal; parameters, mean "
+            f"|difference| from the single step: data {rows['data']['vs_single_mean']:.2e}, "
+            f"fsdp {rows['fsdp']['vs_single_mean']:.2e}; two single runs {spread:.2e} (dQ's "
+            f"atomics); movement {movement:.2e}")
+        del batch, bf16
+        _free_device_memory()
+
+        # f32, deterministic: bit-equal over six steps
+        batch_n = GRAPH_F32_STEP[0]
+        cfg32 = dataclasses.replace(config, compute_dtype="float32", batch_size=batch_n,
+                                    run_name="dist32")
+        batch = torch.from_numpy(np.random.default_rng(8).uniform(
+            -1, 1, (batch_n, 32, 32, 3)).astype(np.float32)).cuda()
+        f32 = {}
+        _deterministic_algorithms(True)
+        try:
+            for name in ("single", "data", "fsdp"):
+                losses, params, step_ms, captured, _ = run_steps(cfg32, meshes[name], batch)
+                f32[name] = (losses, params, captured)
+        finally:
+            _deterministic_algorithms(False)
+        for name in ("data", "fsdp"):
+            check(torch.equal(f32[name][0], f32["single"][0]), f"f32 {name}: losses differ")
+            differing = [k for k, v in f32[name][1].items()
+                         if not torch.equal(v, f32["single"][1][k])]
+            check(not differing, f"f32 {name}: parameters differ in {differing[:4]}")
+            check(all(f32[name][2]), f"f32 {name}: not captured")
+        out["f32_b64_bit_equal"] = True
+        log(f"  f32 32-px Config-D step at batch {batch_n}, deterministic algorithms, graphed: "
+            f"the data and fsdp meshes bit-equal to the single step over {DIST_STEPS} steps "
+            f"(losses and every parameter)")
+        del batch, f32
+        _free_device_memory()
+
+        # the CLI under the process group
+        root = os.path.join(OUT_DIR, "dist_root")
+        shutil.rmtree(root, ignore_errors=True)
+        args = cli.build_parser().parse_args(["train", *TRAIN_FLAGS, "--epochs", "1",
+                                              "--root", root])
+        t0 = time.perf_counter()
+        losses = cli.run_train(args)
+        wall = time.perf_counter() - t0
+        run_cfg = cli.config_from_args(args)
+        with open(os.path.join(run_cfg.runs_dir(root), "metrics.jsonl")) as f:
+            header = json.loads(f.readline())
+        impl = header.get("impl", {})
+        check(impl.get("distributed", {}).get("backend") == "nccl"
+              and impl["distributed"]["world_size"] == 1 and impl.get("cuda_graphs") is True,
+              f"train header impl: {impl}")
+        check(os.path.exists(run_cfg.checkpoint_path(root) + ".npz"), "train: no checkpoint")
+        check(len(losses) == 1 and math.isfinite(losses[0]), f"train losses {losses}")
+        run_root = os.path.join(OUT_DIR, "dist_run_root")
+        shutil.rmtree(run_root, ignore_errors=True)
+        cli.run_ddpm(cli.build_parser().parse_args(
+            ["run", *STUDY_MODEL_FLAGS, "--batch-size", "256", "--image-gen-per-epoch", "0",
+             "--epochs", "1", "--noise-steps", "20", "--gen-total", "4", "--gen-per-batch", "4",
+             "--root", run_root]))
+        run_cfg2 = cli.config_from_args(cli.build_parser().parse_args(
+            ["run", *STUDY_MODEL_FLAGS]))
+        settings = os.path.join(run_cfg2.runs_dir(run_root),
+                                f"settings_{run_cfg2.dataset}_{run_cfg2.variant}.txt")
+        with open(settings) as f:
+            impl_lines = [line for line in f.read().splitlines() if line.startswith("impl.")]
+        check(any(line.startswith("impl.distributed: ") and "'nccl'" in line
+                  for line in impl_lines), f"settings impl lines: {impl_lines}")
+        out["cli_train"] = dict(wall_s=wall, losses=losses, impl=impl,
+                                settings_impl_lines=len(impl_lines))
+        log(f"  CLI train, 1 epoch at batch 256 under the process group: {wall:.2f} s, loss "
+            f"{losses[0]:.4f}; metrics.jsonl header impl.distributed {impl['distributed']}, "
+            f"impl.cuda_graphs {impl['cuda_graphs']}; rank 0 wrote the checkpoint; run's "
+            f"settings file: {len(impl_lines)} impl.* lines")
+    finally:
+        dist.destroy_process_group()
+
+    # the CLI sample with a JAX command line's training flags
+    path = os.path.join(OUT_DIR, "sample_batch_size.png")
+    t0 = time.perf_counter()
+    rc = cli.main(["sample", "--batch-size", "16", "--epochs", "3", "--lr", "1e-3",
+                   "--variant", "3", "--image-size", "32", "--image-channels", "3",
+                   "--compute-dtype", "bfloat16", "--f-kernel", "3", "--f-beta", "2",
+                   "--random-weights", "--ddim-steps", "10", "--n", "4", "--device", "cuda",
+                   "--out", path])
+    check(rc == 0 and os.path.exists(path), "sample --batch-size 16")
+    out["cli_sample_batch_size"] = dict(wall_s=time.perf_counter() - t0)
+    log(f"  CLI sample --batch-size 16 --epochs 3 --lr 1e-3 (the JAX CLI's flags): wrote "
+        f"{path} in {out['cli_sample_batch_size']['wall_s']:.2f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2253,6 +2575,10 @@ def main() -> int:
     log("[2e] filtered_gelu pair vs plain version and conv form at the train steps' and the sampler's shapes")
     fgres = phase_fg_kernel(rs, unet_mod, blocks, config)
     done("filtered_gelu kernels")
+    log("[2f] filtered_gelu pair under each AFDM_GELU mode at the 32-px step's shapes; the "
+        "graphed step under poly13")
+    gelu_modes = phase_gelu_modes(rs, fgres, ptxas, config)
+    done("gelu modes")
     log("[3] full-width Config-D UNet forward and sampler, card vs cpu")
     fg = phase_unet(fa, rs, weights, unet_mod, config)
     done("unet card vs cpu")
@@ -2272,6 +2598,10 @@ def main() -> int:
     log("[6b] CUDA graphs against eager: the samplers and the train steps")
     graph_res = phase_graphs(fa, rs, weights, unet_mod, config, fg)
     done("graphs against eager")
+    log("[6c] the step on a one-rank NCCL mesh (data, fsdp) against the single step; the CLI "
+        "under the process group; sample with the JAX CLI's training flags")
+    dist_res = phase_distributed(fa, rs, cli, config)
+    done("distributed step")
     log("[7] study path: CLI probe, run, rotate, shift, eval; Inception forward")
     study = phase_study(fa, kp, cli)
     done("study path")
@@ -2444,9 +2774,12 @@ def main() -> int:
         "steps": fgres["steps"],
         "sampling": fgres["sampling"],
         "per_sampling_forward_ms": fgres["per_forward"],
+        # phase 2f: the pair per step under each AFDM_GELU mode
+        "gelu_modes": gelu_modes,
         "shapes": fgres["rows"],
         "main_path_runs": train_runs + runs,
     }], "graphs": graph_res,
+        "distributed": dist_res,
         "study_path": {k: v for k, v in study.items() if not k.startswith("probe_")},
         "grid_path": grid,
         "profiler_shortfalls": PROFILER_SHORTFALLS}

@@ -74,7 +74,8 @@ def test_profile_dir_and_opt_state_flags_on_train_run_and_sweep():
             [cmd, "--profile-dir", "/tmp/p", "--checkpoint-opt-state"])
         assert args.profile_dir == "/tmp/p"
         assert cli.config_from_args(args).checkpoint_opt_state is True
-    assert not hasattr(cli.build_parser().parse_args(["sample"]), "profile_dir")
+    # sample takes the flag, as in the JAX CLI, and reads it not
+    assert cli.build_parser().parse_args(["sample"]).profile_dir is None
 
 
 def test_train_writes_a_profiler_trace_of_steps_10_to_19(tmp_path):
@@ -88,4 +89,5 @@ def test_train_writes_a_profiler_trace_of_steps_10_to_19(tmp_path):
     assert sum(e.get("name") == "Optimizer.step#AdamW.step" for e in events) == 10
     header = json.loads((tmp_path / "runs" / "DDPM_Uncondtional_CIFAR10_0" / "metrics.jsonl")
                         .read_text().splitlines()[0])
-    assert header["native_loader"] in ("loaded", "not built (builds on first data use)")
+    # the loader's status is part of the implementation report, as in the JAX header
+    assert header["impl"]["native_loader"] in ("loaded", "not built (builds on first data use)")

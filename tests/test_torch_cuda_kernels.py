@@ -206,6 +206,38 @@ def test_filtered_gelu_kernels_match_plain_version(card, n, c, h, w, k, dtype):
         assert torch.equal(y, ref.detach()), int((y != ref).sum())
 
 
+@pytest.mark.parametrize("mode", ["exact", "poly13"])
+@pytest.mark.parametrize("n,c,h,w,k", [(4, 32, 32, 32, 3), (3, 5, 9, 40, 3), (2, 4, 12, 7, 5),
+                                       (16, 128, 4, 4, 3)])
+def test_filtered_gelu_kernels_follow_the_gelu_mode(card, monkeypatch, mode, n, c, h, w, k):
+    """Under AFDM_GELU the pair takes the same GELU form as its plain version
+    (ops/resample.py:gelu_form): the bf16 forward equal element for element,
+    the backward within two bf16 ulps of the largest entry; f32 keeps erf."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.ops import resample as tr
+
+    monkeypatch.setenv("AFDM_GELU", mode)
+    rng = np.random.default_rng(h * w + k + 1)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.from_numpy(2 * rng.standard_normal((n, c, h, w)).astype(np.float32)).to(
+            card, dtype)
+        g = torch.from_numpy(rng.standard_normal((n, c, h, w)).astype(np.float32)).to(card, dtype)
+        up, down = _fg_taps(card, k, dtype)
+        y, dx = tr.filtered_gelu_fwd(x, up, down), tr.filtered_gelu_bwd(x, up, down, g)
+        xg = x.clone().requires_grad_()
+        ref = tr.filtered_gelu_phases(xg, up, down)
+        (ref_dx,) = torch.autograd.grad(ref, xg, g)
+        fwd_tol, bwd_tol = FG_TOL[dtype]
+        for name, a, r, tol in (("out", y, ref, fwd_tol), ("dx", dx, ref_dx, bwd_tol)):
+            err = (a.float() - r.float()).abs().max().item()
+            assert err <= tol * r.float().abs().max().item(), (dtype, name, err)
+        if dtype == torch.bfloat16:
+            assert torch.equal(y, ref.detach()), int((y != ref).sum())
+            monkeypatch.delenv("AFDM_GELU")
+            default = tr.filtered_gelu_fwd(x, up, down)  # the degree-15 form differs
+            monkeypatch.setenv("AFDM_GELU", mode)
+            assert not torch.equal(default, y)
+
+
 def test_filtered_gelu_misaligned_input_takes_the_generic_kernel(card):
     """A tensor 2 bytes past a 16-byte boundary cannot take the square-plane
     instantiation's word loads: the plan names the generic one, which still

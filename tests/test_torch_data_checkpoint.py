@@ -147,11 +147,9 @@ def test_jax_checkpoint_restored_by_port(tmp_path):
 
 def test_train_config_matches_jax_defaults_and_validation():
     jcfg, tcfg = JTrainConfig(), TrainConfig()
-    left_out = {"mesh_shape", "mesh_axes"}
-    jfields = {k: v for k, v in vars(jcfg).items() if k not in left_out}
-    assert vars(tcfg) == jfields
-    assert json.loads(tcfg.to_json()) == {k: v for k, v in json.loads(jcfg.to_json()).items()
-                                          if k not in left_out}
+    # every field, the mesh fields included
+    assert vars(tcfg) == vars(jcfg)
+    assert json.loads(tcfg.to_json()) == json.loads(jcfg.to_json())
     for root_fn in ("model_dir", "checkpoint_path", "runs_dir", "results_dir"):
         assert getattr(tcfg, root_fn)("r") == getattr(jcfg, root_fn)("r")
     for bad in (dict(lr_schedule="linear"), dict(grad_accum=0), dict(grad_clip=-1.0),

@@ -128,13 +128,14 @@ def test_launch_counters_count_replays(card):
     assert sampler.captured == (True,)  # the last, noiseless step comes once: eager
 
 
-def _train(card, use_graphs, dtype, steps=4, start=None, **kw):
+def _train(card, use_graphs, dtype, steps=4, start=None, mesh=None, **kw):
     cfg = _config(dtype, **kw)
-    model, state = train_mod.create_train_state(cfg, device=card)
+    model, state = train_mod.create_train_state(cfg, device=card, mesh=mesh)
     if start is not None:
         start.update({k: v.clone() for k, v in state.params.items()})
     step = train_mod.make_train_step(model, cfg, Diffusion(noise_steps=STEPS, img_size=SIZE,
-                                                           device=card), graphs=use_graphs)
+                                                           device=card), graphs=use_graphs,
+                                     mesh=mesh)
     batch = torch.from_numpy(np.random.default_rng(1).uniform(
         -1, 1, (N, SIZE, SIZE, 3)).astype(np.float32))
     gen = torch.Generator(device=card)
@@ -258,3 +259,38 @@ def test_graphed_step_binds_its_state(card):
     _, other = train_mod.create_train_state(dataclasses.replace(cfg), device=card)
     with pytest.raises(ValueError, match="bound to the TrainState"):
         step(other, batch, gen)
+
+
+@pytest.fixture
+def nccl_world_of_one(card):
+    """torch.distributed over NCCL with this process as its only rank."""
+    import socket
+
+    import torch.distributed as dist
+
+    from aliasfree_diffusion_models_pytorch_tpu_torch.parallel.multihost import init_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert init_distributed(f"tcp://localhost:{port}", 1, 0)
+    assert dist.get_backend() == "nccl"
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shape,axes", [((1,), ("data",)), ((1, 1), ("data", "fsdp"))])
+def test_graphed_mesh_step_on_one_nccl_rank_equals_the_single_step(card, nccl_world_of_one,
+                                                                   shape, axes):
+    """The step on a one-rank mesh runs its collectives through NCCL (inside
+    the CUDA graphs) and computes the single-device step's bits, f32 under
+    deterministic algorithms, over six steps."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(shape, axes)
+    with _deterministic():
+        single, loss_s = _train(card, True, "float32", steps=6)
+        meshed, loss_m = _train(card, True, "float32", steps=6, mesh=mesh)
+    assert torch.equal(loss_s, loss_m)
+    for name, value in single.params.items():
+        assert torch.equal(value, meshed.params[name]), name
