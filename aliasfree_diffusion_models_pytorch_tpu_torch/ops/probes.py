@@ -8,10 +8,11 @@ Counterparts of the Pallas kernels of the JAX package's two micro-probes:
   the port's f32 attention kernels; the bf16 ones take ``exp2``). It answers
   what an exponential costs on the card beside a polynomial on the FMA units.
 * :func:`qk_rowsum` is ``benchmarks/attn_headpack.py``'s ``qk_rowsum_kernel``
-  (:84-92): ``out[n, 0, q] = Σ_k Σ_d K[n, k, d]·Qᵀ[n, d, q]`` with the logits
-  formed in registers and only their sums written. It answers what the
-  matrix unit charges for QKᵀ at head dim 8 against 32 (block-diagonal
-  packing) and 128.
+  (:84-92): ``out[n, 0, q] = Σ_k Σ_d K[n, k, d]·Qᵀ[n, d, q]`` with every
+  logit formed on the tensor cores (``wgmma``, K and Qᵀ tiles brought by
+  TMA) and only the sums over the keys written. It answers what the matrix unit charges
+  for QKᵀ at head dim 8 against 32 (block-diagonal packing) and 128.
+  :func:`qk_plan` is its launch plan.
 
 A CPU tensor takes the plain version (:func:`exp_chain_plain`,
 :func:`qk_rowsum_plain`); a CUDA tensor launches ``csrc/exp_chain.cu`` /
@@ -22,6 +23,7 @@ A CPU tensor takes the plain version (:func:`exp_chain_plain`,
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -29,8 +31,8 @@ import torch
 
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
 
-__all__ = ["OPS", "exp_chain", "exp_chain_plain", "qk_rowsum", "qk_rowsum_plain",
-           "block_diagonal_pack", "QK_HEAD_DIMS", "QK_QUERY_BLOCK"]
+__all__ = ["OPS", "exp_chain", "exp_chain_plain", "qk_rowsum", "qk_rowsum_plain", "qk_plan",
+           "QkPlan", "block_diagonal_pack", "QK_HEAD_DIMS", "QK_SEQ_MULTIPLE"]
 
 # The op's index here is the kernel's `op` argument (csrc/exp_chain.cu: enum Op).
 OPS = ("copy", "mul2", "poly4", "exp", "exp2", "fastexp2", "tanh", "erf", "rsqrt1p",
@@ -103,7 +105,7 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.afdm_exp_chain.argtypes = [vp, vp, ctypes.c_longlong, ci, ci, ci, vp]
         lib.afdm_exp_chain.restype = ci
     else:
-        lib.afdm_qk_rowsum.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+        lib.afdm_qk_rowsum.argtypes = [vp, vp, vp] + [ci] * 10 + [vp]
         lib.afdm_qk_rowsum.restype = ci
     lib.afdm_cuda_error_string.argtypes = [ci]
     lib.afdm_cuda_error_string.restype = ctypes.c_char_p
@@ -152,7 +154,22 @@ def exp_chain(x: torch.Tensor, op: str, chain: int = 16, subtract: bool = True) 
 kernels.count_launches(exp_chain)
 
 QK_HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernel's template instantiations
-QK_QUERY_BLOCK = 128  # queries per block: s must be a multiple
+QK_SEQ_MULTIPLE = 128  # a consumer warpgroup's queries: s must be a multiple
+# The kernel's tile by depth (csrc/qk_rowsum.cu: Tile): keys a wgmma (the
+# accumulator's columns), ring stages, TMA swizzle width of a key tile in bytes
+# (0: none), blocks an SM.
+QK_TILES = {8: (64, 8, 0, 2), 16: (64, 8, 32, 2), 32: (128, 8, 64, 1), 64: (128, 6, 128, 1),
+            128: (128, 4, 128, 1)}
+QK_KEYS = 128      # keys a TMA tile and ring stage
+QK_WARPGROUPS = 2  # consumer warpgroups a block, and one producer warpgroup
+QK_ROW_TILES = 2   # m64 query tiles a consumer warpgroup
+QK_ALIGN = 1024    # every stage starts on this boundary (a swizzled tile's)
+# Registers a thread starts with, by blocks an SM (csrc/qk_rowsum.cu: Registers):
+# the setmaxnreg hand-over adds up only at these counts, and the launch refuses others.
+QK_LAUNCH_REGS = {1: 168, 2: 80}
+# The constant that marks a refused tensor map in the kernel's error code
+# (csrc/qk_rowsum.cu: kTensorMapError).
+QK_TENSOR_MAP_ERROR = 100000
 # The plain version holds the (chunk, s, s) f32 logits in memory: it walks n in
 # chunks that keep them under this many bytes.
 PLAIN_LOGITS_BYTES = 2**30
@@ -184,14 +201,62 @@ def _check_qk(k: torch.Tensor, qt: torch.Tensor) -> None:
         raise ValueError(f"empty input {tuple(k.shape)}")
 
 
+@dataclasses.dataclass(frozen=True)
+class QkPlan:
+    """Launch plan of ``csrc/qk_rowsum.cu`` for ``n`` groups of ``s`` keys
+    and queries of depth ``d``."""
+
+    keys_per_tile: int      # keys a TMA tile and a ring stage
+    acc_keys: int           # N of wgmma m64nNk16: a tile is keys_per_tile / N products
+    queries_per_block: int  # a work item: QK_WARPGROUPS x QK_ROW_TILES x 64 queries
+    stages: int             # ring stages in shared memory
+    swizzle: int            # a key tile's TMA swizzle (and wgmma layout) width in bytes; 0: none
+    smem_bytes: int         # dynamic shared memory: alignment slack, the ring (each stage a
+                            # key tile rounded up to QK_ALIGN), the queries' tile (d rows of
+                            # 128 bytes an m64 tile), the mbarriers and d = 8's zeros
+    items: int              # (group, block of queries_per_block queries)
+    grid: int               # persistent blocks: as many as the SMs hold at once, at most items
+    depth: int              # the MMA's depth: d, or 16 at d = 8 (zero-padded)
+    issued_flops: int       # tensor-core FLOPs of the plan's wgmmas: 2 n s s depth
+
+
+def qk_plan(n: int, s: int, d: int, sms: int) -> QkPlan:
+    """The plan the kernel takes for k (n, s, d) and qt (n, d, s) on a card
+    of ``sms`` SMs, as ``csrc/qk_rowsum.cu`` computes and checks it. Raises
+    for a shape the kernel does not take."""
+    if d not in QK_HEAD_DIMS:
+        raise ValueError(f"depth {d} not in {QK_HEAD_DIMS}")
+    if s < QK_SEQ_MULTIPLE or s % QK_SEQ_MULTIPLE:
+        raise ValueError(f"s must be a multiple of {QK_SEQ_MULTIPLE}, got {s}")
+    if n < 1 or n * s > 2**31 - 1:
+        raise ValueError(f"n·s = {n * s} rows of k: the tensor map's int32 coordinates take "
+                         "1 .. 2^31 - 1")
+    acc_keys, stages, swizzle, per_sm = QK_TILES[d]
+    keys = QK_KEYS
+    stage_bytes = -(-keys * d * 2 // QK_ALIGN) * QK_ALIGN
+    queries = QK_WARPGROUPS * QK_ROW_TILES * 64
+    barriers = 2 * stages + 2
+    items = n * -(-s // queries)
+    depth = max(d, 16)
+    return QkPlan(keys_per_tile=keys, acc_keys=acc_keys, queries_per_block=queries,
+                  stages=stages, swizzle=swizzle,
+                  smem_bytes=(QK_ALIGN + stages * stage_bytes
+                              + QK_WARPGROUPS * QK_ROW_TILES * d * 128 + 8 * barriers
+                              + 16 * QK_ROW_TILES),
+                  items=items, grid=min(items, sms * per_sm),
+                  depth=depth,
+                  issued_flops=2 * n * s * s * depth)
+
+
 def qk_rowsum(k: torch.Tensor, qt: torch.Tensor) -> torch.Tensor:
     """Row sums over the keys of the logits ``k·qt``: k (n, s, d) and qt
     (n, d, s) in bf16 → (n, 1, s) f32.
 
     CPU tensors take :func:`qk_rowsum_plain`. CUDA tensors launch the
-    hand-written kernel on the current stream, which forms every logit in
-    registers on the tensor cores (``mma.sync``) and writes only the sums.
-    Anything the kernel cannot take raises.
+    hand-written kernel on the current stream, which forms every logit on the
+    tensor cores (``wgmma``, K and Qᵀ tiles brought by TMA) and writes only the
+    sums, as :func:`qk_plan` lays it out. Anything the kernel cannot take
+    raises.
     """
     _check_qk(k, qt)
     if k.device.type == "cpu":
@@ -201,23 +266,24 @@ def qk_rowsum(k: torch.Tensor, qt: torch.Tensor) -> torch.Tensor:
     n, s, d = k.shape
     if k.dtype != torch.bfloat16 or qt.dtype != torch.bfloat16:
         raise TypeError(f"qk_rowsum takes bfloat16, got {k.dtype} and {qt.dtype}")
-    if d not in QK_HEAD_DIMS:
-        raise ValueError(f"depth {d} not in {QK_HEAD_DIMS}")
-    if s % QK_QUERY_BLOCK:
-        raise ValueError(f"s must be a multiple of {QK_QUERY_BLOCK}, got {s}")
-    if n > 65535:
-        raise ValueError(f"n must be at most 65535 (the grid's second axis), got {n}")
+    plan = qk_plan(n, s, d, torch.cuda.get_device_properties(k.device).multi_processor_count)
     if not (k.is_contiguous() and qt.is_contiguous()):
         raise ValueError("k and qt must be contiguous")
+    if k.data_ptr() % 16 or qt.data_ptr() % 16:  # TMA's base addresses
+        raise ValueError("k and qt must be 16-byte aligned (a view into the middle of a tensor "
+                         "is not)")
     out = torch.empty((n, 1, s), dtype=torch.float32, device=k.device)
     lib = _lib("qk_rowsum")
     with torch.cuda.device(k.device):
         err = lib.afdm_qk_rowsum(
-            k.data_ptr(), qt.data_ptr(), out.data_ptr(), n, s, d,
-            torch.cuda.current_stream(k.device).cuda_stream)
+            k.data_ptr(), qt.data_ptr(), out.data_ptr(), n, s, d, plan.keys_per_tile,
+            plan.acc_keys, plan.queries_per_block, plan.stages, plan.swizzle, plan.smem_bytes,
+            plan.grid, torch.cuda.current_stream(k.device).cuda_stream)
     if err != 0:
+        detail = (f" (CUresult {err - QK_TENSOR_MAP_ERROR})" if err >= QK_TENSOR_MAP_ERROR
+                  else "")
         raise RuntimeError(
-            f"qk_rowsum launch failed: {lib.afdm_cuda_error_string(err).decode()}")
+            f"qk_rowsum launch failed: {lib.afdm_cuda_error_string(err).decode()}{detail}")
     qk_rowsum.launches += 1
     return out
 

@@ -9,7 +9,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``qk_rowsum``, ``filtered_gelu``), and prints the build seconds and each
    kernel's registers and spill bytes from ptxas; every attention kernel,
    bf16 and f32 (every f32 instantiation must be listed), D = 128 included,
-   and the filtered-GELU pair must spill nothing;
+   the filtered-GELU pair and ``qk_rowsum`` must spill nothing; every
+   ``qk_rowsum`` instantiation must hold ``HGMMA`` and ``UTMALDG`` and no
+   ``HMMA`` in its machine code (``cuobjdump -sass``), and start with the
+   registers its ``setmaxnreg`` hand-over adds up to;
 3. holds each kernel against its plain PyTorch version on the card, in bf16
    (the tensor-core kernels) and f32 (the FMA-pipe kernels: two f32 backward
    calls must be bit-equal at every shape), with and
@@ -33,8 +36,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (chain 16, and a single application), with each op's bound, its cost per
    application off the slope against ``copy`` and the ``fastexp2`` accuracy
    line; ``qk_rowsum`` at the probe's three shapes, with the ``bmm`` + ``sum``
-   yardstick, the two ratios and the verdict; then the filtered-GELU pair
-   (``csrc/filtered_gelu.cu``) at every distinct filtered-GELU shape of the
+   yardstick, TFLOP/s and the share of the bound (the time must not be under
+   the bound), its plan with the FLOPs of the plan's wgmmas, the two ratios
+   and the verdict; then the
+   filtered-GELU pair (``csrc/filtered_gelu.cu``) at every distinct filtered-GELU shape of the
    bf16 train steps at 32 px (batch 256), 64 px (batch 32) and the two 128-px
    regimes, and of the 32-px sampling forward (n=16), bf16 and f32, forward
    and backward, against its plain version and the conv form (the bf16
@@ -314,6 +319,29 @@ def ptxas_report(log_text: str) -> list[dict]:
     return [dict(kernel=kernel_label(name), registers=e.get("registers", -1),
                  spill_stores=e.get("spill", (0, 0))[0], spill_loads=e.get("spill", (0, 0))[1])
             for name, e in entries.items() if "registers" in e]
+
+
+# What every qk_rowsum instantiation's machine code must hold: Hopper's
+# warpgroup MMA (HGMMA) and TMA tile loads (UTMALDG), and no mma.sync (HMMA).
+QK_SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_report(lib_path) -> dict:
+    """{kernel label: {op: count}} for the ops of QK_SASS_OPS in every
+    function of a built library, from ``cuobjdump -sass`` (the toolkit's,
+    beside nvcc)."""
+    import re
+
+    from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
+
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    report = {}
+    for m in re.finditer(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
+        report[kernel_label(m.group(1))] = {
+            op: len(re.findall(rf"\b{op}\b", m.group(2))) for op in QK_SASS_OPS}
+    return report
 
 
 def card_line() -> str:
@@ -940,12 +968,25 @@ def phase_qk_rowsum(kp) -> dict:
         ops_ms = 1e3 * row["flops"] / MATMUL_FLOPS_PER_S[torch.bfloat16]
         row["bound_ms"], row["bound_by"] = max(bytes_ms, ops_ms), (
             "bytes" if bytes_ms >= ops_ms else "operations")
+        # The logits are formed on the tensor cores, so the kernel takes at least the bound's
+        # FLOPs at the card's peak; summing K over the keys first would run near the bytes time.
+        check(row["ms"] >= row["bound_ms"], f"qk_rowsum {name}: {row['ms']} ms is under the "
+              f"{row['bound_ms']} ms of its bound: the logits were not all formed")
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows.append(row)
+        # the plan's figures, not measured: its wgmmas' FLOPs (d = 8 padded to depth 16)
+        plan = kp.qk_plan(n, s, d, torch.cuda.get_device_properties(0).multi_processor_count)
         log(f"  {name:15s} (n={n}, s={s}, d={d}) err {row['max_abs_err']:.1e} "
             f"({row['max_rel_err']:.1e} of max)  device ms: kernel {row['ms']:.4f} "
-            f"({row['flops'] / row['ms'] / 1e9:.1f} TFLOP/s) "
+            f"({row['tflops']:.1f} TFLOP/s of the bound's {row['flops']:.4g} FLOPs; "
+            f"{row['share_of_bound']:.3f} of the bound) "
             f"plain {row['plain_ms']:.3f} bmm+sum(chunks of {chunk}) {row['library_ms']:.3f} "
-            f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']})  plan: {plan.issued_flops:.4g} "
+            f"FLOPs in its wgmmas ({plan.issued_flops / row['ms'] / 1e9:.1f} TFLOP/s), "
+            f"{plan.keys_per_tile} keys a tile, N {plan.acc_keys}, {plan.stages} stages, "
+            f"swizzle {plan.swizzle}, {plan.smem_bytes} B, {plan.grid} blocks over "
+            f"{plan.items} items")
         del k, qt
         torch.cuda.empty_cache()
     ms = {r["shape"]: r["ms"] for r in rows}
@@ -2540,8 +2581,22 @@ def main() -> int:
     # Every attention kernel, bf16 and f32, and the filtered-GELU pair keep
     # every value in registers; the report holds every f32 instantiation.
     spilled = [e["kernel"] for e in ptxas if e["spill_stores"] + e["spill_loads"] and (
-        e["library"] == "filtered_gelu" or e["library"].startswith("flash_"))]
-    check(not spilled, f"attention or filtered-GELU kernels spill: {spilled}")
+        e["library"] in ("filtered_gelu", "qk_rowsum") or e["library"].startswith("flash_"))]
+    check(not spilled, f"attention, filtered-GELU or qk_rowsum kernels spill: {spilled}")
+    # qk_rowsum runs on wgmma and TMA in every instantiation, with no mma.sync left
+    qk_sass = sass_report(kernels.library_path("qk_rowsum"))
+    for label, ops in qk_sass.items():
+        log(f"    sass {label:<28} " + ", ".join(f"{op} {n}" for op, n in ops.items()))
+    qk_labels = {f"qk_rowsum_kernel<{d}>" for d in kp.QK_HEAD_DIMS}
+    check(set(qk_sass) == qk_labels, f"qk_rowsum functions in the SASS: {sorted(qk_sass)}")
+    check(all(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0
+              for ops in qk_sass.values()), f"qk_rowsum SASS: {qk_sass}")
+    # Its consumers take the registers its producer gives back (setmaxnreg), which adds up
+    # only at the count every thread starts with.
+    qk_regs = {e["kernel"]: e["registers"] for e in ptxas if e["library"] == "qk_rowsum"}
+    expect_regs = {f"qk_rowsum_kernel<{d}>": kp.QK_LAUNCH_REGS[t[3]]
+                   for d, t in kp.QK_TILES.items()}
+    check(qk_regs == expect_regs, f"qk_rowsum registers {qk_regs}, expected {expect_regs}")
     f32_found = {e["kernel"] for e in ptxas if "_f32_" in e["kernel"]}
     check(f32_found == F32_INSTANTIATIONS,
           f"f32 kernels in the ptxas report: {sorted(f32_found)}, expected "
@@ -2737,6 +2792,14 @@ def main() -> int:
         "max_rel_err": max(r["max_rel_err"] for r in qres["rows"]),
         "rel_tol": QK_REL_TOL,
         "kernels_per_launch": 1,
+        "design": "persistent blocks over (group, 256 queries) items; wgmma.mma_async "
+                  "m64nNk16 with A (the item's queries, a TMA tile of Qt turned into registers "
+                  "by ldmatrix.trans) and B (128-key tiles of K, by TMA through an mbarrier "
+                  "ring fed by a producer warpgroup that gives its registers to two consumer "
+                  "warpgroups); f32 accumulators carried over every key tile, summed once",
+        "flops": sum(r["flops"] for r in qres["rows"]),
+        "sass": qk_sass,
+        "registers": [e for e in ptxas if e["library"] == "qk_rowsum"],
         "shapes": qres["rows"],
         "packed_over_perhead": qres["packed_over_perhead"],
         "d128_over_d8": qres["d128_over_d8"],

@@ -410,7 +410,16 @@ def test_exp_chain_kernel_matches_plain_version(card, op, chain):
 
 
 @pytest.mark.parametrize("n,s,d", [(4, 128, 8), (3, 256, 16), (2, 512, 32), (2, 128, 64),
-                                   (4, 128, 128)])
+                                   (4, 128, 128),
+                                   # 32 key tiles through a ring of 8 stages
+                                   (2, 4096, 32),
+                                   # one group, and three; s = 384 leaves the last block's
+                                   # second warpgroup idle
+                                   *[(1, 384, d) for d in kp.QK_HEAD_DIMS],
+                                   *[(3, 256, d) for d in kp.QK_HEAD_DIMS],
+                                   # more (group, 256-query) items than an H100's blocks:
+                                   # each block walks several, the ring runs on between them
+                                   (300, 384, 8), (200, 384, 64), (140, 1024, 128)])
 def test_qk_rowsum_kernel_matches_plain_version(card, n, s, d):
     rng = np.random.default_rng(s + d)
     k = torch.from_numpy(rng.standard_normal((n, s, d)).astype(np.float32)).to(card).bfloat16()
@@ -448,3 +457,8 @@ def test_probe_kernels_never_take_the_plain_version_on_the_card(card):
     k4 = torch.zeros(2, 128, 4, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="depth"):
         kp.qk_rowsum(k4, k4.transpose(1, 2).contiguous())
+    # a contiguous view that starts 2 bytes into its storage: TMA needs a 16-byte base
+    odd = torch.zeros(2 * 128 * 8 + 1, device=card, dtype=torch.bfloat16)[1:].view(2, 128, 8)
+    assert odd.is_contiguous()
+    with pytest.raises(ValueError, match="aligned"):
+        kp.qk_rowsum(odd, k.transpose(1, 2).contiguous())
