@@ -83,6 +83,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    model, at batch 256, and Config D at batch 64): ms per step, images per
    second, kernels per step and device busy share from torch.profiler,
    attention and filtered-GELU ms per step, peak memory;
+7a. (phase 6a) runs ``python3 bench_torch.py`` as a child process on the
+   kernels built above and prints its JSON line: it must exit 0 with
+   bench.py's keys, finite numbers, the card's name, an MFU in (0, 1] at 32
+   px and at 64 px, a step within 15% of phase 6's graphed 32-px bf16 step,
+   and, on its stderr, 6 + 6 attention launches and phase 6's filtered-GELU
+   launches for each of its 30 timed steps;
 7b. (phase 6b) holds the CUDA graphs against ``graphs=False``, in turns in
    one run: DDPM-1000, DDIM-50, a CFG DDIM-20 and a 200-step ``shift`` at
    n=16, 32 px, and the Config-E sampler at 128 px, bit-equal from the same
@@ -1954,6 +1960,76 @@ def phase_step_time(fa, rs, config) -> list[dict]:
     return results
 
 
+# Phase 6a: bench_torch.py as a child process. bench.py's keys (its `out`
+# dict, the 64-px regime's included), the timed steps of its card branch, and
+# how far its step may be from phase 6's graphed 32-px bf16 step (the same
+# step at the same batch, timed in another process).
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "batch_size", "n_devices", "mesh",
+              "backend", "device_kind", "compute_dtype", "step_ms", "final_loss",
+              "flops_per_step", "mfu", "sample_1000step_n16_wall_s", "ddim_50step_n16_wall_s",
+              "train64_step_ms", "train64_imgs_per_sec_b32", "train64_flops_per_step",
+              "train64_mfu", "phase_s")
+BENCH_NUMBERS = [k for k in BENCH_KEYS if k not in (
+    "metric", "unit", "mesh", "backend", "device_kind", "compute_dtype", "phase_s")]
+BENCH_TIMED_STEPS = 30
+BENCH_STEP_RTOL = 0.15
+BENCH_TIMEOUT_S = 420
+
+
+def phase_bench(step_rows: list[dict]) -> dict:
+    """Run ``python3 bench_torch.py`` from the checkout's root, as a user
+    would, on the kernels phase 1 built, and check its one line: bench.py's
+    keys, finite numbers, the card's name, both MFUs in (0, 1], the step
+    within BENCH_STEP_RTOL of phase 6's, and the launches of its timed steps
+    (its stderr) those of 30 graphed steps. Prints the line."""
+    import re
+
+    _free_device_memory()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(root, "bench_torch.py")], cwd=root,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        log(f"  {line[:400]}")
+    check(proc.returncode == 0, f"bench_torch.py exited {proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) == 1, f"bench_torch.py printed {len(lines)} lines on stdout")
+    print(lines[0], flush=True)  # the bench's line as it printed it
+    res = json.loads(lines[0])
+    check(tuple(res) == BENCH_KEYS, f"bench keys {list(res)}")
+    bad = [k for k in BENCH_NUMBERS if not (isinstance(res[k], (int, float))
+                                            and math.isfinite(res[k]))]
+    bad += [k for k, v in res["phase_s"].items() if not math.isfinite(v)]
+    check(not bad, f"bench: not a finite number: {bad}")
+    check(res["backend"] == "cuda" and res["compute_dtype"] == "bfloat16"
+          and res["n_devices"] == 1 and res["mesh"] is None and res["batch_size"] == 256,
+          f"bench settings {res}")
+    check(res["device_kind"] == torch.cuda.get_device_name(0), f"bench device {res['device_kind']}")
+    check(0 < res["mfu"] <= 1 and 0 < res["train64_mfu"] <= 1,
+          f"bench mfu {res['mfu']}, train64_mfu {res['train64_mfu']}")
+    ref = next(r for r in step_rows if r["px"] == 32 and r["dtype"] == "bfloat16"
+               and r["fg_impl"] == "phases")
+    check(abs(res["step_ms"] - ref["step_ms"]) <= BENCH_STEP_RTOL * ref["step_ms"],
+          f"bench step {res['step_ms']} ms, phase 6's {ref['step_ms']:.2f} ms")
+    found = re.search(r"launches (\{[^}]*\})", proc.stderr)
+    check(found is not None, "bench: no launch counts on stderr")
+    launches = json.loads(found.group(1))
+    n = BENCH_TIMED_STEPS
+    fg = ref["fg_launches_per_step"] * n
+    check(launches.get("flash_attention_fwd") == 6 * n
+          and launches.get("flash_attention_bwd") == 6 * n
+          and launches.get("filtered_gelu_fwd") == launches.get("filtered_gelu_bwd") == fg > 0,
+          f"bench launches {launches}: expected {6 * n} attention and {fg} filtered-GELU "
+          "launches each way")
+    log(f"  bench: {res['value']} imgs/s/chip, step {res['step_ms']} ms (phase 6: "
+        f"{ref['step_ms']:.2f} ms), mfu {res['mfu']}, train64 {res['train64_step_ms']} ms "
+        f"(mfu {res['train64_mfu']}), DDPM-1000 {res['sample_1000step_n16_wall_s']} s, DDIM-50 "
+        f"{res['ddim_50step_n16_wall_s']} s; child process {wall:.1f} s")
+    return {"line": res, "timed_launches": launches, "phase6_step_ms": ref["step_ms"],
+            "child_s": wall}
+
+
 # Phase 6b: graphed against eager, in turns in one run. The samplers of phase
 # 4 (n = 16, bf16, 32 px), the shift sweep's sampler of phase 7 and the
 # Config-E sampler of phase 8 at 128 px: (name, image size, base width,
@@ -2650,6 +2726,9 @@ def main() -> int:
     log("[6] steady-state train step")
     step_rows = phase_step_time(fa, rs, config)
     done("step time")
+    log("[6a] bench_torch.py as a child process: its line against phase 6")
+    bench_res = phase_bench(step_rows)
+    done("bench")
     log("[6b] CUDA graphs against eager: the samplers and the train steps")
     graph_res = phase_graphs(fa, rs, weights, unet_mod, config, fg)
     done("graphs against eager")
@@ -2841,7 +2920,8 @@ def main() -> int:
         "gelu_modes": gelu_modes,
         "shapes": fgres["rows"],
         "main_path_runs": train_runs + runs,
-    }], "graphs": graph_res,
+    }], "bench": bench_res,
+        "graphs": graph_res,
         "distributed": dist_res,
         "study_path": {k: v for k, v in study.items() if not k.startswith("probe_")},
         "grid_path": grid,

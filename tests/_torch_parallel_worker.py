@@ -1,13 +1,18 @@
-"""One rank of the port's data-parallel and FSDP tests (``test_torch_parallel.py``).
+"""One rank of the port's data-parallel and FSDP tests (``test_torch_parallel.py``)
+and of the bench's mesh branch (``test_torch_bench.py``).
 
-Started by the test with ``torch.multiprocessing`` (spawn) as one of two gloo
-ranks on the CPU; imports no JAX. :func:`main` starts torch.distributed at
+:func:`launch` starts the ranks with ``torch.multiprocessing`` (spawn), gloo
+on the CPU; imports no JAX. :func:`main` starts torch.distributed at
 ``tcp://localhost:<port>``, runs each case the test hands it, in order, and
 writes what this rank saw to ``<out>/rank<r>.pt``.
 """
 
+import contextlib
+import importlib.util
+import io
 import os
 import shutil
+import socket
 
 import numpy as np
 import torch
@@ -62,11 +67,26 @@ def _train(case, config, mesh):
     return {"losses": losses}
 
 
+def _bench(case):
+    """``bench_torch.main(case["argv"])`` (the file ``case["bench"]``) on this
+    rank: its return value and what it printed on stdout."""
+    spec = importlib.util.spec_from_file_location("bench_torch", case["bench"])
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        code = bench.main(case["argv"])
+    return {"exit": code, "stdout": stdout.getvalue()}
+
+
 def main(rank: int, size: int, port: int, cases: dict, out: str) -> None:
     torch.set_num_threads(1)
     init_distributed(f"tcp://localhost:{port}", size, rank, backend="gloo")
     results = {}
     for name, case in cases.items():
+        if "bench" in case:
+            results[name] = _bench(case)
+            continue
         mesh = make_mesh(case["mesh_shape"], ("data", "fsdp"))
         run = _train if case.get("train") else _steps
         results[name] = run(case, case["config"], mesh)
@@ -79,3 +99,33 @@ def main(rank: int, size: int, port: int, cases: dict, out: str) -> None:
 
 def batch_of(rows: int, size: int, channels: int, seed: int) -> np.ndarray:
     return synthetic_dataset(n=rows, image_size=size, channels=channels, seed=seed).images
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch(cases: dict, out: str, size: int = 2, timeout: float = 240.0) -> list[dict]:
+    """Run :func:`main` on ``size`` spawned gloo ranks over ``cases``; every
+    rank's results. Raises when a rank fails or outlives ``timeout`` seconds
+    (then every rank is stopped)."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=main, args=(r, size, port, cases, out)) for r in range(size)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=timeout)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.terminate()
+        p.join(timeout=10)
+    if alive:
+        raise RuntimeError(f"ranks did not finish in {timeout} s")
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * size:
+        raise RuntimeError(f"rank exit codes {codes}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(size)]

@@ -77,7 +77,7 @@ def _imports(path: pathlib.Path):
 
 
 def test_port_sources_import_no_jax():
-    files = sorted((REPO / PORT).rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / PORT).rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
     assert len(files) > 20
     names = {f.name for f in files}
     assert {"probes.py", "eval.py", "eval_inception.py", "tasks.py", "plotting.py",

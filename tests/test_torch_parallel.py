@@ -36,7 +36,6 @@ import dataclasses
 import json
 import math
 import os
-import socket
 
 import jax
 import jax.numpy as jnp
@@ -112,12 +111,6 @@ def _draws(jdiff, i, rows):
     t = np.array(jdiff.sample_timesteps(tkey, rows)).astype(np.int64)
     noise = np.array(random.normal(nkey, (rows, SIZE, SIZE, C), jnp.float32))
     return key, t, noise
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _assert_params(got: dict, expect: dict, lr: float, updates: int):
@@ -199,21 +192,7 @@ def runs(tmp_path_factory):
         "resume": dict(train_case, root=resume_root, resume_from=str(root)),
     }
     out = tmp_path_factory.mktemp("ranks")
-    ctx = torch.multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=worker.main, args=(r, 2, port, cases, str(out)))
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=WORKER_TIMEOUT_S)
-    alive = [p for p in procs if p.is_alive()]
-    for p in alive:
-        p.terminate()
-        p.join(timeout=10)
-    assert not alive, f"ranks did not finish in {WORKER_TIMEOUT_S} s"
-    assert [p.exitcode for p in procs] == [0, 0]
-    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    ranks = worker.launch(cases, str(out), timeout=WORKER_TIMEOUT_S)
     return dict(ranks=ranks, ref=ref, batches=batches, padded=padded, root=str(root),
                 resume_root=resume_root, profile_dir=str(profile_dir), train_cfg=train_cfg)
 
