@@ -20,7 +20,9 @@ samples the same model in both packages. Every subcommand that takes them in
 the JAX CLI takes the training flags (``sample``, ``rotate``, ``shift`` and
 ``summary`` read none of them). ``--device`` and ``--lr-total-steps`` are the
 port's own. Data-parallel training runs one process a GPU under ``torchrun``
-(``parallel/``); ``info`` prints the mesh ``parallel.make_mesh()`` gives. ``train`` writes the
+(``parallel/``): ``train``, ``run`` and ``sweep`` start torch.distributed from
+its environment and end it before they return; ``info`` prints the mesh
+``parallel.make_mesh()`` gives. ``train`` writes the
 run's ``.npz`` checkpoint (``models/<run_name>/ckpt_<dataset>_<variant>.npz``
 under ``--root``), in the JAX package's layout; with no ``--dataset-path`` it
 trains on the synthetic dataset. ``run`` is the whole experiment pipeline
@@ -38,13 +40,16 @@ its markdown table and writing its JSON artifact. ``--device`` picks the card
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import logging
 import math
 import sys
+import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from aliasfree_diffusion_models_pytorch_tpu_torch.config import FilterSettings, TrainConfig
 
@@ -263,44 +268,95 @@ def run_sample(args) -> np.ndarray:
     return final
 
 
+class _ProcessGroup:
+    """torch.distributed for one subcommand: started from torchrun's
+    environment (nothing without one; a group the caller started is left to
+    the caller), and torn down on the way out when this subcommand started it.
+
+    :meth:`close` first drops what is left of a train step (its CUDA graphs
+    hold collectives captured on the group's communicators: destroying the
+    group under them hangs the ranks), then meets every rank at a barrier,
+    then destroys the group. On an exception the group goes without the
+    barrier, which could wait forever on a rank that died.
+    """
+
+    def __init__(self):
+        from aliasfree_diffusion_models_pytorch_tpu_torch.parallel.multihost import (
+            init_distributed,
+        )
+
+        self.started = not dist.is_initialized() and init_distributed()
+
+    def close(self) -> None:
+        if not self.started:
+            return
+        self.started = False
+        gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        nccl = dist.get_backend() == "nccl"
+        dist.barrier(device_ids=[torch.cuda.current_device()] if nccl else None)
+        dist.destroy_process_group()
+
+    def __enter__(self) -> "_ProcessGroup":
+        return self
+
+    def __exit__(self, kind, value, tb) -> None:
+        if kind is None:
+            self.close()
+        elif self.started:
+            self.started = False
+            traceback.clear_frames(tb)  # the failed frames may hold a train step
+            gc.collect()
+            dist.destroy_process_group()
+
+
 def run_train(args) -> list[float]:
     """The ``train`` subcommand: returns the per-epoch mean losses. Under
     ``torchrun`` (one process a GPU) it starts torch.distributed and trains
     data-parallel (``train.train_mesh``); rank 0 writes the run."""
     from aliasfree_diffusion_models_pytorch_tpu_torch.data import get_data
-    from aliasfree_diffusion_models_pytorch_tpu_torch.parallel.multihost import init_distributed
     from aliasfree_diffusion_models_pytorch_tpu_torch.train import train
 
-    init_distributed()  # torchrun's environment; nothing without one
-    config = config_from_args(args)
-    dl, _ = get_data(
-        config.dataset, config.dataset_path, config.image_size, config.batch_size,
-        image_channels=config.image_channels, seed=config.seed, synthetic_fallback=True,
-    )
-    return train(config, dl, root=args.root, device=args.device, resume=args.resume,
-                 profile_dir=args.profile_dir)
+    with _ProcessGroup():
+        config = config_from_args(args)
+        dl, _ = get_data(
+            config.dataset, config.dataset_path, config.image_size, config.batch_size,
+            image_channels=config.image_channels, seed=config.seed, synthetic_fallback=True,
+        )
+        return train(config, dl, root=args.root, device=args.device, resume=args.resume,
+                     profile_dir=args.profile_dir)
 
 
 def run_ddpm(args) -> dict:
-    """The ``run`` subcommand: ``tasks.ddpm_run``'s result dict."""
-    from aliasfree_diffusion_models_pytorch_tpu_torch.tasks import ddpm_run
+    """The ``run`` subcommand: ``tasks.ddpm_run``'s result dict. Under
+    ``torchrun`` every rank trains; the process group ends with training,
+    since nothing after it is collective, and rank 0 samples and writes."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.tasks import ddpm_finish, ddpm_train
 
-    return ddpm_run(config_from_args(args), root=args.root, device=args.device,
-                    profile_dir=args.profile_dir)
+    with _ProcessGroup() as group:
+        trained = ddpm_train(config_from_args(args), root=args.root, device=args.device,
+                             profile_dir=args.profile_dir)
+        group.close()
+        return ddpm_finish(trained)
 
 
 def run_sweep(args) -> list[dict]:
     """The ``sweep`` subcommand: one full ``ddpm_run`` per variant, each in
-    its own run-name tree."""
-    from aliasfree_diffusion_models_pytorch_tpu_torch.tasks import ddpm_run
+    its own run-name tree. Every variant trains first (on every rank under
+    ``torchrun``), then the process group ends, then rank 0 samples and
+    writes each variant's artifacts."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.tasks import ddpm_finish, ddpm_train
 
-    results = []
-    for v in (int(s) for s in args.variants.split(",")):
-        cfg_v = config_from_args(argparse.Namespace(**{**vars(args), "variant": v}))
-        print(f"=== sweep: variant {v} -> {cfg_v.run_name} ===")
-        results.append(ddpm_run(cfg_v, root=args.root, device=args.device,
-                                profile_dir=args.profile_dir))
-    return results
+    with _ProcessGroup() as group:
+        trained = []
+        for v in (int(s) for s in args.variants.split(",")):
+            cfg_v = config_from_args(argparse.Namespace(**{**vars(args), "variant": v}))
+            print(f"=== sweep: variant {v} -> {cfg_v.run_name} ===")
+            trained.append(ddpm_train(cfg_v, root=args.root, device=args.device,
+                                      profile_dir=args.profile_dir))
+        group.close()
+        return [ddpm_finish(t) for t in trained]
 
 
 def run_reproduce_grid(args) -> dict:

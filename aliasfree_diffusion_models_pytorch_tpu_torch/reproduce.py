@@ -336,7 +336,7 @@ def reproduce_grid(
             logger.info("grid config %s: training %d epochs", name, epochs)
             t0 = time.time()
             dl = Dataloader(ds, batch_size=batch_size, seed=seed)
-            losses = train(config, dl, root=root, device=device)
+            losses = train(config, dl, root=root, device=device, sample_each_epoch=False)
             train_s = time.time() - t0
 
         if gen_u8 is None:

@@ -5,7 +5,9 @@ Counterpart of ``aliasfree_diffusion_models_pytorch_tpu/tasks.py``:
 dump, filter / noising / resampling diagnostics, UNet smoke test, training,
 loss CSV, checkpoint reload, sampling and denoising demos, batch generation
 for the metrics, collages — with saved artifacts under the reference's file
-names (typos included).
+names (typos included). It runs as two stages, :func:`ddpm_train` (every
+rank trains on the mesh) and :func:`ddpm_finish` (rank 0 alone writes and
+samples), so a caller that started torch.distributed can end it in between.
 
 :func:`rotation_results` / :func:`shift_results` are the Config-E evaluation
 routines: per θ (or shift) the generator is re-seeded with the SAME seed, so
@@ -26,6 +28,7 @@ with one warning.
 from __future__ import annotations
 
 import csv
+import dataclasses
 import logging
 import os
 import time
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from aliasfree_diffusion_models_pytorch_tpu_torch.config import FilterSettings, TrainConfig
-from aliasfree_diffusion_models_pytorch_tpu_torch.data import get_data
+from aliasfree_diffusion_models_pytorch_tpu_torch.data import ArrayDataset, get_data
 from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
 from aliasfree_diffusion_models_pytorch_tpu_torch.models.unet import (
     UNet,
@@ -51,6 +54,7 @@ from aliasfree_diffusion_models_pytorch_tpu_torch.ops.resample import (
     maxpool2x,
     upsample_bilinear_align_corners,
 )
+from aliasfree_diffusion_models_pytorch_tpu_torch.parallel import world
 from aliasfree_diffusion_models_pytorch_tpu_torch.train import (
     recover_stored_config,
     step_generator,
@@ -133,37 +137,80 @@ def resample_ab_demo(
     return filtered, plain
 
 
+@dataclasses.dataclass
+class TrainedRun:
+    """What :func:`ddpm_train` leaves for :func:`ddpm_finish`. ``writer``:
+    this process was rank 0 when it trained (the process group may be gone
+    by the time the run finishes)."""
+
+    writer: bool
+    config: TrainConfig
+    root: str
+    device: torch.device
+    loss_all: list[float]
+    settings_path: str | None
+    dataset: ArrayDataset
+    diffusion: Diffusion
+    generator: torch.Generator
+    plots: bool
+    t_run: float
+
+
 def ddpm_run(
     config: TrainConfig,
     *,
     root: str = ".",
     device="cuda",
+    mesh=None,
     diagnostics: bool = True,
     generate: bool = True,
     profile_dir: str | None = None,
 ) -> dict:
-    """Full experiment on ``device`` (``profile_dir``: a profiler trace of a
-    few train steps, see ``train.train``).
+    """Full experiment on ``device``: :func:`ddpm_train`, then
+    :func:`ddpm_finish` (``mesh`` and ``profile_dir``: see ``train.train``).
 
     Returns a result dict with the per-epoch losses and artifact paths. All
     artifact names and locations follow the reference layout, including its
     typos ("Uncondtional" run dirs, the hardcoded ``trining_loss_MNIST_*.csv``
-    file name).
+    file name). Under torch.distributed every rank trains on the mesh and
+    rank 0 alone writes and samples; the other ranks return
+    ``{"loss_all": ...}`` once training is over.
     """
+    return ddpm_finish(ddpm_train(config, root=root, device=device, mesh=mesh,
+                                  diagnostics=diagnostics, profile_dir=profile_dir),
+                       generate=generate)
+
+
+def ddpm_train(
+    config: TrainConfig,
+    *,
+    root: str = ".",
+    device="cuda",
+    mesh=None,
+    diagnostics: bool = True,
+    profile_dir: str | None = None,
+) -> TrainedRun:
+    """The stages of :func:`ddpm_run` up to training: the settings file, the
+    diagnostics and the UNet smoke test (rank 0), then training (every rank).
+    Nothing after it is collective."""
     t_run = time.time()
     device = torch.device(device)
+    writer = world()[0] == 0
     runs_dir = config.runs_dir(root)
-    os.makedirs(runs_dir, exist_ok=True)
-    plots = plotting.available()
-    if not plots:
+    plots = writer and plotting.available()
+    if writer and not plots:
         logger.warning("matplotlib is not installed: the run's figures are skipped")
-
-    # 1. Settings snapshot.
-    settings_path = os.path.join(runs_dir, f"settings_{config.dataset}_{config.variant}.txt")
-    with open(settings_path, "w") as f:
-        f.write(config.settings_text())
-    logger.info("device: %s", torch.cuda.get_device_name(device)
-                if device.type == "cuda" else device)
+    generator = torch.Generator(device=device)
+    settings_path = None
+    if writer:
+        os.makedirs(runs_dir, exist_ok=True)
+        # 1. Settings snapshot.
+        settings_path = os.path.join(runs_dir,
+                                     f"settings_{config.dataset}_{config.variant}.txt")
+        with open(settings_path, "w") as f:
+            f.write(config.settings_text())
+        logger.info("device: %s", torch.cuda.get_device_name(device)
+                    if device.type == "cuda" else device)
 
     # 2. Filter diagnostics.
     if plots and diagnostics and config.filters is not None:
@@ -177,19 +224,19 @@ def ddpm_run(
             plotting.plot_filter_and_response(kern, os.path.join(runs_dir, f"filter_{name}.png"))
 
     # 3. UNet smoke test: parameter count and an executed forward on random input.
-    generator = torch.Generator(device=device)
-    model = build_model(config, device=device, state_dict=init_params(config, 0))
-    logger.info("UNet parameters: %s", f"{param_count(model):,}")
-    shape = (2, config.image_size, config.image_size, config.image_channels)
-    x = torch.randn(shape, generator=generator.manual_seed(1), device=device)
-    t = torch.full((2,), min(500, config.noise_steps - 1), dtype=torch.long, device=device)
-    with torch.inference_mode():
-        out = model(x, t)
-    if out.shape != x.shape or not bool(torch.isfinite(out).all()):
-        raise RuntimeError(f"UNet smoke forward: {tuple(x.shape)} -> {tuple(out.shape)}, "
-                           f"finite: {bool(torch.isfinite(out).all())}")
-    logger.info("UNet forward: %s -> %s", tuple(x.shape), tuple(out.shape))
-    del model, out
+    if writer:
+        model = build_model(config, device=device, state_dict=init_params(config, 0))
+        logger.info("UNet parameters: %s", f"{param_count(model):,}")
+        shape = (2, config.image_size, config.image_size, config.image_channels)
+        x = torch.randn(shape, generator=generator.manual_seed(1), device=device)
+        t = torch.full((2,), min(500, config.noise_steps - 1), dtype=torch.long, device=device)
+        with torch.inference_mode():
+            out = model(x, t)
+        if out.shape != x.shape or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"UNet smoke forward: {tuple(x.shape)} -> {tuple(out.shape)}, "
+                               f"finite: {bool(torch.isfinite(out).all())}")
+        logger.info("UNet forward: %s -> %s", tuple(x.shape), tuple(out.shape))
+        del model, out
 
     # 4. Data and the noising visualisation.
     dataloader, dataset = get_data(
@@ -198,7 +245,7 @@ def ddpm_run(
         synthetic_fallback=True,
     )
     diffusion = _diffusion(config, device)
-    if diagnostics:
+    if writer and diagnostics:
         img = torch.from_numpy(dataset.images[:1].repeat(9, axis=0)).to(device)
         tvis = torch.from_numpy(
             np.round(np.linspace(0, config.noise_steps - 1, 9)).astype(np.int64)).to(device)
@@ -208,7 +255,7 @@ def ddpm_run(
                                  os.path.join(runs_dir, "noising_chain.png"))
 
     # 4b. Filtered vs plain resampling A/B on a real training image.
-    if diagnostics and config.filters is not None:
+    if writer and diagnostics and config.filters is not None:
         filtered, plain = resample_ab_demo(dataset.images[0], config.filters, device)
         if plots:
             plotting.plot_image_panels(list(filtered.values()), list(filtered.keys()),
@@ -216,9 +263,24 @@ def ddpm_run(
             plotting.plot_image_panels(list(plain.values()), list(plain.keys()),
                                        os.path.join(runs_dir, "resample_plain.png"))
 
-    # 5. Train, then the loss artifacts.
-    loss_all = train(config, dataloader, root=root, device=device, profile_dir=profile_dir)
-    if plots:
+    # 5. Train.
+    loss_all = train(config, dataloader, root=root, device=device, mesh=mesh,
+                     profile_dir=profile_dir)
+    return TrainedRun(writer, config, root, device, loss_all, settings_path, dataset, diffusion,
+                      generator, plots, t_run)
+
+
+def ddpm_finish(run: TrainedRun, *, generate: bool = True) -> dict:
+    """The stages of :func:`ddpm_run` after training, on rank 0 (another rank
+    returns ``{"loss_all": ...}``): the loss artifacts, the sampling and
+    denoising demos from the reloaded checkpoint, the generated image set for
+    the metrics and its collages."""
+    config, root, device = run.config, run.root, run.device
+    loss_all, diffusion, generator = run.loss_all, run.diffusion, run.generator
+    if not run.writer:
+        return {"loss_all": loss_all}
+    runs_dir = config.runs_dir(root)
+    if run.plots:
         plotting.plot_loss(loss_all, os.path.join(runs_dir, "loss.png"))
     loss_csv = os.path.join(runs_dir, f"trining_loss_MNIST_{config.variant}.csv")  # [sic]
     with open(loss_csv, "w", newline="") as f:
@@ -231,7 +293,7 @@ def ddpm_run(
                                  generator=generator.manual_seed(config.seed))
     traj = diffusion.revert(model, n=1, image_channels=config.image_channels,
                             generator=generator.manual_seed(config.seed))
-    if plots:
+    if run.plots:
         plotting.plot_images(finals.cpu().numpy(), os.path.join(runs_dir, "samples.png"))
         plotting.plot_images(traj.cpu().numpy(), os.path.join(runs_dir, "denoising.png"))
 
@@ -239,7 +301,7 @@ def ddpm_run(
     gen_dir = os.path.join(root, f"images/generated/{config.dataset}_{config.variant}")
     if config.save_training:
         save_dataset_images(os.path.join(root, f"images/original/{config.dataset}"),
-                            dataset.images)
+                            run.dataset.images)
 
     # 8. Batch generation for the metric set, then the collages.
     if generate and config.gen_total > 0:
@@ -260,10 +322,10 @@ def ddpm_run(
         if per_collage >= 1:
             make_collage(gen_dir, gen_dir, per_collage, collage_total, config.image_size)
 
-    logger.info("ddpm_run finished in %.1fs", time.time() - t_run)
+    logger.info("ddpm_run finished in %.1fs", time.time() - run.t_run)
     return {
         "loss_all": loss_all,
-        "settings_path": settings_path,
+        "settings_path": run.settings_path,
         "loss_csv": loss_csv,
         "checkpoint": config.checkpoint_path(root),
         "gen_dir": gen_dir,

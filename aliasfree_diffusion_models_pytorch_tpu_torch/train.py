@@ -108,8 +108,6 @@ from aliasfree_diffusion_models_pytorch_tpu_torch.utils.graphs import GraphedSte
 logger = logging.getLogger(__name__)
 
 STEP_START_EMA = 2000  # micro-batches during which the EMA copies the parameters
-LOG_EVERY = 50  # steps between two loss records in metrics.jsonl
-PROFILE_STEPS = (10, 20)  # the steps of a call that ``profile_dir`` traces
 
 
 def lr_at(config: TrainConfig, update: int) -> float:
@@ -571,17 +569,29 @@ def train(
     *,
     root: str = ".",
     device="cuda",
-    resume: bool = False,
-    profile_dir: str | None = None,
     mesh: Mesh | None = None,
+    sample_each_epoch: bool = True,
+    checkpoint_each_epoch: bool = True,
+    resume: bool = False,
+    prefetch: bool = True,
+    log_every: int = 50,
+    profile_dir: str | None = None,
+    profile_steps: tuple[int, int] = (10, 20),
 ) -> list[float]:
     """Full training run on ``device``; returns the per-epoch mean losses.
 
-    Artifacts under ``root``: ``results/<run>/<epoch>.jpg`` sample grids,
-    ``models/<run>/ckpt_*.npz`` (overwritten each epoch) with ``config.json``
-    beside it, ``runs/<run>/metrics.jsonl``. ``profile_dir`` captures a
-    ``torch.profiler`` trace (host and device) of this call's steps
-    ``PROFILE_STEPS`` as ``<profile_dir>/trace_<run>.json``, a Chrome trace.
+    The keywords are the JAX ``train()``'s, with its defaults, and
+    ``device``. Artifacts under ``root``: ``results/<run>/<epoch>.jpg``
+    sample grids (with ``sample_each_epoch`` and ``config.image_gen_n > 0``),
+    ``models/<run>/ckpt_*.npz`` (with ``checkpoint_each_epoch``, overwritten
+    each epoch) with ``config.json`` beside it, ``runs/<run>/metrics.jsonl``
+    (a loss record every ``log_every`` steps). ``prefetch`` gathers the next
+    batch on a host thread while the device steps. ``profile_dir`` captures a
+    ``torch.profiler`` trace (host and device) as
+    ``<profile_dir>/trace_<run>.json``, a Chrome trace, of this call's steps
+    from ``profile_steps[0]`` up to, not including, ``profile_steps[1]``,
+    counted from 0 in every call (the JAX trainer's window counts its global
+    step and takes its last step too).
 
     Under torch.distributed with more than one rank the run steps on a mesh
     (``mesh``, or :func:`train_mesh`'s): every rank walks the same global
@@ -650,8 +660,9 @@ def train(
             f.write(config.to_json())
     metrics_path = os.path.join(config.runs_dir(root), "metrics.jsonl")
 
-    # The host-side gather of the next batch overlaps the device step.
-    dataloader = PrefetchLoader(dataloader)
+    if prefetch:
+        # The host-side gather of the next batch overlaps the device step.
+        dataloader = PrefetchLoader(dataloader)
 
     generator = torch.Generator(device=device)
     loss_all: list[float] = []
@@ -695,7 +706,7 @@ def train(
                         lbls = np.concatenate([lbls, lbls[:pad]], axis=0)
                 batch = put_global_batch(mesh, images, device=device)
                 labels = None if lbls is None else put_global_batch(mesh, lbls, device=device)
-                if profile_dir is not None and writer and run_step == PROFILE_STEPS[0]:
+                if profile_dir is not None and writer and run_step == profile_steps[0]:
                     profiler = _start_profiler()
                 state, loss = step_fn(
                     state, batch, step_generator(generator, config.seed, global_step), labels,
@@ -704,10 +715,10 @@ def train(
                 imgs += n_real or images.shape[0]
                 global_step += 1
                 run_step += 1
-                if profiler is not None and run_step == PROFILE_STEPS[1]:
+                if profiler is not None and run_step == profile_steps[1]:
                     _stop_profiler(profiler, profile_dir, config.run_name, device)
                     profiler = None
-                if global_step % LOG_EVERY == 0:
+                if global_step % log_every == 0:
                     loss_value = float(loss)  # waits for the device, once per log point
                     dt = time.perf_counter() - t_start
                     rate = imgs / max(dt, 1e-9)
@@ -721,8 +732,9 @@ def train(
                         metrics_f.flush()
             loss_all.append(float(torch.stack(epoch_losses).mean()) if epoch_losses else 0.0)
 
-            # Under FSDP every rank takes part in the gathers; rank 0 writes.
-            if config.image_gen_n > 0:
+            # Under FSDP every rank takes part in the gathers, so every rank
+            # takes the same branches; rank 0 writes.
+            if sample_each_epoch and config.image_gen_n > 0:
                 weights = state.gather(state.ema_params if config.use_ema else state.params)
                 if writer:
                     with torch.no_grad():
@@ -735,11 +747,12 @@ def train(
                         generator=step_generator(generator, config.seed, 2**31 + epoch))
                     save_image_grid(final.cpu().numpy(),
                                     os.path.join(config.results_dir(root), f"{epoch}.jpg"))
-            params, ema = state.gather(state.params), state.gather(state.ema_params)
-            opt_state = (ckpt_lib.opt_state_arrays(config, state)
-                         if config.checkpoint_opt_state else None)
-            if writer:
-                ckpt_lib.save_checkpoint(ckpt_path, params, ema, state.step, opt_state)
+            if checkpoint_each_epoch:
+                params, ema = state.gather(state.params), state.gather(state.ema_params)
+                opt_state = (ckpt_lib.opt_state_arrays(config, state)
+                             if config.checkpoint_opt_state else None)
+                if writer:
+                    ckpt_lib.save_checkpoint(ckpt_path, params, ema, state.step, opt_state)
     if profiler is not None:  # the run ended inside the window
         _stop_profiler(profiler, profile_dir, config.run_name, device)
     return loss_all

@@ -134,7 +134,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
    128-px gather rotation card against CPU and the Config-E sampler at 128
    px (theta 90, 50 noise steps, n=4, bf16, base width 128: 294 launches),
    wall and device time per step;
-10. prints one JSON line of every ported kernel, the card line, and last
+10. (phase 9) runs ``examples/quickstart_torch.py`` and
+   ``examples/conditional_cfg_torch.py`` in this process, each ``main`` at
+   the JAX script's full configuration (Config D, 32 px, f32, 5 epochs at
+   batch 64, 1000 noise steps; DDPM-1000 and DDIM-50 at n=8 and Config E at
+   n=4, then RandomFeatures metrics; CFG DDIM-50 at n=40) from a scratch
+   working directory, with its wall time and its launches (240 + 240 in
+   training, 5994 + 300 + 5994 and 300 in the samplers; the filtered GELU's
+   conv form in f32, no pair launch), its epoch losses, artifacts, metric
+   keys and sample shapes checked;
+11. (phase 9b) runs ``torchrun --nproc-per-node 1 -m
+   aliasfree_diffusion_models_pytorch_tpu_torch train`` and ``run`` at a cut
+   size as child processes under a time limit: each exits 0, with no
+   ``destroy_process_group`` warning, and writes its run;
+12. prints one JSON line of every ported kernel, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the ``ok``
@@ -2620,6 +2633,177 @@ def phase_distributed(fa, rs, cli, config) -> dict:
     return out
 
 
+# Phase 9: the examples at the JAX scripts' full configuration (Config D,
+# 32 px, f32, 5 epochs of 512 synthetic images at batch 64 = 40 steps, 1000
+# noise steps). Attention launches: 6 a forward and 6 a backward a step, 6 a
+# sampler step (999 for DDPM-1000, 50 for DDIM-50; CFG doubles the batch, not
+# the forwards). The filtered GELU takes the conv form in f32 (as the JAX
+# package's f32 path does): the pair launches nothing here.
+EXAMPLES = {
+    "quickstart": dict(fwd=6 * 40 + 6 * 999 + 6 * 50 + 6 * 999, bwd=6 * 40),
+    "conditional_cfg": dict(fwd=6 * 40 + 6 * 50, bwd=6 * 40),
+}
+EXAMPLE_METRICS = ("feature_space", "inception_score_mean", "inception_score_std",
+                   "frechet_inception_distance", "kernel_inception_distance_mean",
+                   "kernel_inception_distance_std")
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout, imported by its path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_examples(fa, rs) -> list[dict]:
+    """Each port example's ``main`` in this process, with a scratch working
+    directory, every launch counter set to 0 just before and read just after."""
+    import shutil
+
+    work = os.path.abspath(os.path.join(OUT_DIR, "examples"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    argvs = {"quickstart": ["--root", work],
+             "conditional_cfg": ["--root", os.path.join(work, "cond_example")]}
+    rows = []
+    for name, expect in EXAMPLES.items():
+        module = load_example(f"{name}_torch")
+        stage_s: dict[str, float] = {}
+
+        def timed(fn, stage: str):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    torch.cuda.synchronize()
+                    stage_s[stage] = stage_s.get(stage, 0.0) + time.perf_counter() - t0
+            return run
+
+        # the wall of each stage: the example calls these by their module names
+        for stage in ("train", "sample_stage", "calculate_metrics"):
+            if hasattr(module, stage):
+                setattr(module, stage, timed(getattr(module, stage), stage))
+        _free_device_memory()
+        cwd = os.getcwd()
+        os.chdir(work)
+        torch.cuda.synchronize()
+        fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+        rs.filtered_gelu_fwd.launches = rs.filtered_gelu_bwd.launches = 0
+        t0 = time.perf_counter()
+        try:
+            result = module.main(argvs[name])
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+        fg_counts = (rs.filtered_gelu_fwd.launches, rs.filtered_gelu_bwd.launches)
+        check(counts == (expect["fwd"], expect["bwd"]),
+              f"{name}: attention launches (fwd, bwd) {counts}, expected "
+              f"{(expect['fwd'], expect['bwd'])}")
+        check(fg_counts == (0, 0), f"{name}: filtered_gelu launches {fg_counts} in f32")
+        losses = result["losses"]
+        check(len(losses) == 5 and all(math.isfinite(x) for x in losses),
+              f"{name}: epoch losses {losses}")
+        check(os.path.exists(result["checkpoint"]), f"{name}: no checkpoint {result['checkpoint']}")
+        grid = os.path.join(work, result["grid"])
+        check(os.path.exists(grid), f"{name}: no grid at {grid}")
+        row = dict(run=f"example_{name}", wall_s=wall, stage_s=stage_s, fwd_launches=counts[0],
+                   bwd_launches=counts[1], fg_fwd_launches=fg_counts[0],
+                   fg_bwd_launches=fg_counts[1], epoch_losses=losses)
+        if name == "quickstart":
+            shapes = {k: (v.shape, str(v.dtype)) for k, v in result["samples"].items()}
+            check(shapes == {"final": ((8, 32, 32, 1), "uint8"), "fast": ((8, 32, 32, 1), "uint8"),
+                             "rotated": ((4, 32, 32, 1), "uint8")}, f"quickstart samples {shapes}")
+            check(all(v.std() > 0 for v in result["samples"].values()), "quickstart: constant samples")
+            metrics = result["metrics"]
+            check(tuple(metrics) == EXAMPLE_METRICS, f"quickstart metric keys {list(metrics)}")
+            check(all(math.isfinite(v) for k, v in metrics.items() if k != "feature_space"),
+                  f"quickstart metrics {metrics}")
+            row["metrics"] = metrics
+        else:
+            imgs = result["images"]
+            check(imgs.shape == (40, 32, 32, 1) and imgs.dtype == np.uint8 and imgs.std() > 0,
+                  f"conditional_cfg images {imgs.shape} {imgs.dtype}")
+        stages = ", ".join(f"{k} {v:.2f} s" for k, v in stage_s.items())
+        log(f"  {name}: {wall:.2f} s wall ({stages}), epoch mean losses "
+            f"{[round(x, 4) for x in losses]}, launches attention {counts[0]} + {counts[1]}, "
+            f"filtered_gelu {fg_counts[0]} + {fg_counts[1]}"
+            + (f", metrics {row['metrics']}" if "metrics" in row else ""))
+        rows.append(row)
+    return rows
+
+
+# Phase 9b: the CLI under torchrun, one rank on the card (an NCCL world of
+# one): it must end the process group it started, so PyTorch does not warn.
+TEARDOWN_TIMEOUT_S = 300
+TEARDOWN_WARNING = "destroy_process_group"
+
+
+def phase_teardown(cli) -> list[dict]:
+    """``torchrun --nproc-per-node 1 -m <port> train`` and ``run`` at a cut
+    size as child processes, each in a session of its own that a time limit
+    kills whole: exit 0, no teardown warning, the run's files written."""
+    import shutil
+    import signal
+    import socket
+
+    _free_device_memory()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    rows = []
+    cuts = {
+        "train": ["train", *TRAIN_FLAGS, "--epochs", "1"],
+        "run": ["run", *STUDY_MODEL_FLAGS, "--batch-size", "256", "--image-gen-per-epoch", "0",
+                "--epochs", "1", "--noise-steps", "20", "--gen-total", "4", "--gen-per-batch",
+                "4"],
+    }
+    for name, argv in cuts.items():
+        root = os.path.abspath(os.path.join(OUT_DIR, f"torchrun_{name}"))
+        shutil.rmtree(root, ignore_errors=True)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+               "--nproc-per-node", "1", "--master-port", str(port), "-m",
+               "aliasfree_diffusion_models_pytorch_tpu_torch", *argv, "--root", root]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True, start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=TEARDOWN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise AssertionError(f"torchrun {name}: no exit within {TEARDOWN_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+        for line in err.splitlines()[-8:]:
+            log(f"    {line[:300]}")
+        check(proc.returncode == 0, f"torchrun {name} exited {proc.returncode}")
+        warned = TEARDOWN_WARNING in out + err
+        check(not warned, f"torchrun {name}: the teardown warning is on its output")
+        config = cli.config_from_args(cli.build_parser().parse_args(argv))
+        check(os.path.exists(config.checkpoint_path(root) + ".npz"),
+              f"torchrun {name}: no checkpoint")
+        if name == "train":
+            final = json.loads(out.strip().splitlines()[-1])["final_loss"]
+            check(math.isfinite(final), f"torchrun train: final loss {final}")
+        else:
+            gen = os.path.join(root, "images", "generated", f"{config.dataset}_{config.variant}")
+            check(sorted(os.listdir(gen))[:4] == [f"image_{i}.png" for i in range(4)],
+                  f"torchrun run: generated {sorted(os.listdir(gen))}")
+        log(f"  torchrun --nproc-per-node 1 -m ... {name}: exit {proc.returncode} in {wall:.1f} s, "
+            f"teardown warning: {warned}")
+        rows.append(dict(run=f"torchrun_{name}", exit=proc.returncode, wall_s=wall,
+                         teardown_warning=warned))
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2743,6 +2927,12 @@ def main() -> int:
         "Config E at 128 px")
     grid = phase_grid(fa, cli)
     done("grid and the rest")
+    log("[9] the examples in this process at the JAX scripts' full configuration")
+    examples = phase_examples(fa, rs)
+    done("examples")
+    log("[9b] the CLI under torchrun on one card: train and run end their process group")
+    teardown = phase_teardown(cli)
+    done("torchrun teardown")
     log(f"  [whole script: {time.perf_counter() - t_start:.1f} s]")
 
     main_rows = [r for r in kres["rows"] if r["n"] == 16 and r["dtype"] == "bfloat16"]
@@ -2793,7 +2983,9 @@ def main() -> int:
              "gen_launches": c["gen_launches"][0], "train_s": c["train_s"], "gen_s": c["gen_s"]}
             for c in grid["grid"]["configs"]] + [
             {"run": "sample_128px_config_e", "launches": grid["config_e_128"]["launches"],
-             "wall_s": grid["config_e_128"]["wall_s"]}],
+             "wall_s": grid["config_e_128"]["wall_s"]}] + [
+            {"run": r["run"], "launches": r["fwd_launches"], "wall_s": r["wall_s"]}
+            for r in examples],
         "train_path_launches": train_runs[0]["fwd_launches"],
     }, {
         "name": "flash_bwd",
@@ -2825,7 +3017,9 @@ def main() -> int:
         "shapes": bres["rows"],
         "main_path_runs": train_runs + [
             {"run": "grid_" + c["config"], "train_launches": c["train_launches"][1],
-             "train_s": c["train_s"]} for c in grid["grid"]["configs"]],
+             "train_s": c["train_s"]} for c in grid["grid"]["configs"]] + [
+            {"run": r["run"], "launches": r["bwd_launches"], "wall_s": r["wall_s"]}
+            for r in examples],
         "train_step": step_rows,
     }, {
         "name": "exp_chain",
@@ -2919,12 +3113,15 @@ def main() -> int:
         # phase 2f: the pair per step under each AFDM_GELU mode
         "gelu_modes": gelu_modes,
         "shapes": fgres["rows"],
-        "main_path_runs": train_runs + runs,
+        # the examples run in f32, which takes the conv form: 0 launches
+        "main_path_runs": train_runs + runs + examples,
     }], "bench": bench_res,
         "graphs": graph_res,
         "distributed": dist_res,
         "study_path": {k: v for k, v in study.items() if not k.startswith("probe_")},
         "grid_path": grid,
+        "examples": examples,
+        "torchrun_teardown": teardown,
         "profiler_shortfalls": PROFILER_SHORTFALLS}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)  # the nvidia-smi line as it printed it

@@ -1,12 +1,16 @@
-"""One rank of the port's data-parallel and FSDP tests (``test_torch_parallel.py``)
-and of the bench's mesh branch (``test_torch_bench.py``).
+"""One rank of the port's data-parallel and FSDP tests (``test_torch_parallel.py``),
+of its entry points on a mesh (``test_torch_parallel_entry.py``) and of the
+bench's mesh branch (``test_torch_bench.py``).
 
 :func:`launch` starts the ranks with ``torch.multiprocessing`` (spawn), gloo
-on the CPU; imports no JAX. :func:`main` starts torch.distributed at
-``tcp://localhost:<port>``, runs each case the test hands it, in order, and
-writes what this rank saw to ``<out>/rank<r>.pt``.
+on the CPU; imports no JAX. :func:`main` first runs the cases that start
+torch.distributed themselves, from torchrun's environment (``torchrun``:
+the CLI), then starts it at ``tcp://localhost:<port>`` for every other case
+the test hands it, in order, and writes what this rank saw to
+``<out>/rank<r>.pt``.
 """
 
+import builtins
 import contextlib
 import importlib.util
 import io
@@ -58,12 +62,13 @@ def _train(case, config, mesh):
         if world()[0] == 0:
             shutil.copytree(case["resume_from"], case["root"])
         torch.distributed.barrier()
-    ttrain.PROFILE_STEPS = (0, 1)  # a window inside the few steps of the run
     ds = synthetic_dataset(n=case["rows"], image_size=config.image_size,
                            channels=config.image_channels, seed=case["data_seed"])
     loader = Dataloader(ds, batch_size=config.batch_size, seed=config.seed)
+    # the profiler's window lies inside the few steps of the run
     losses = ttrain.train(config, loader, root=case["root"], device="cpu", mesh=mesh,
-                          resume=resume, profile_dir=case.get("profile_dir"))
+                          resume=resume, profile_dir=case.get("profile_dir"),
+                          profile_steps=(0, 1))
     return {"losses": losses}
 
 
@@ -79,16 +84,87 @@ def _bench(case):
     return {"exit": code, "stdout": stdout.getvalue()}
 
 
+class _WriteSpy:
+    """Lists the files opened for writing or moved into place and the
+    directories made under ``root`` while it is entered (``open``,
+    ``io.open``, ``os.replace``, ``os.makedirs``)."""
+
+    def __init__(self, root: str):
+        self.root = os.path.abspath(root)
+        self.files: list[str] = []
+        self.dirs: list[str] = []
+
+    def _under(self, path) -> bool:
+        return isinstance(path, (str, os.PathLike)) and os.path.abspath(path).startswith(self.root)
+
+    def __enter__(self):
+        self._open, self._makedirs, self._replace = builtins.open, os.makedirs, os.replace
+
+        def spy_open(file, mode="r", *args, **kwargs):
+            if self._under(file) and any(c in mode for c in "wax+"):
+                self.files.append(os.path.relpath(file, self.root))
+            return self._open(file, mode, *args, **kwargs)
+
+        def spy_makedirs(name, *args, **kwargs):
+            if self._under(name) and not os.path.isdir(name):
+                self.dirs.append(os.path.relpath(name, self.root))
+            return self._makedirs(name, *args, **kwargs)
+
+        def spy_replace(src, dst, *args, **kwargs):
+            if self._under(dst):
+                self.files.append(os.path.relpath(dst, self.root))
+            return self._replace(src, dst, *args, **kwargs)
+
+        builtins.open = io.open = spy_open
+        os.makedirs, os.replace = spy_makedirs, spy_replace
+        return self
+
+    def __exit__(self, *exc):
+        builtins.open = io.open = self._open
+        os.makedirs, os.replace = self._makedirs, self._replace
+
+
+def _ddpm_run(case, config, mesh):
+    """``tasks.ddpm_run`` on the mesh: its result's keys, its losses, and the
+    files and directories this rank wrote under the run's root."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch import tasks
+
+    with _WriteSpy(case["root"]) as spy:
+        result = tasks.ddpm_run(config, root=case["root"], device="cpu", mesh=mesh)
+    return {"losses": result["loss_all"], "keys": sorted(result), "files": spy.files,
+            "dirs": spy.dirs}
+
+
+def _cli(case, rank: int, size: int):
+    """``cli.main(case["cli"])`` with torchrun's environment for this rank:
+    its exit code, whether torch.distributed still runs after it, and the
+    files this rank wrote under ``case["root"]``."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch import cli
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(size),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(case["port"]))
+    try:
+        with _WriteSpy(case["root"]) as spy:
+            code = cli.main(case["cli"])
+    finally:
+        for key in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(key)
+    return {"exit": code, "initialized_after": torch.distributed.is_initialized(),
+            "files": spy.files}
+
+
 def main(rank: int, size: int, port: int, cases: dict, out: str) -> None:
     torch.set_num_threads(1)
+    results = {name: _cli(case, rank, size) for name, case in cases.items() if "cli" in case}
     init_distributed(f"tcp://localhost:{port}", size, rank, backend="gloo")
-    results = {}
     for name, case in cases.items():
+        if "cli" in case:
+            continue
         if "bench" in case:
             results[name] = _bench(case)
             continue
         mesh = make_mesh(case["mesh_shape"], ("data", "fsdp"))
-        run = _train if case.get("train") else _steps
+        run = _ddpm_run if case.get("ddpm_run") else _train if case.get("train") else _steps
         results[name] = run(case, case["config"], mesh)
         results[name]["position"] = batch_sharding(mesh, axis=mesh.axis_names).index()
         results[name]["pid"] = os.getpid()
@@ -101,7 +177,7 @@ def batch_of(rows: int, size: int, channels: int, seed: int) -> np.ndarray:
     return synthetic_dataset(n=rows, image_size=size, channels=channels, seed=seed).images
 
 
-def _free_port() -> int:
+def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -112,7 +188,7 @@ def launch(cases: dict, out: str, size: int = 2, timeout: float = 240.0) -> list
     rank's results. Raises when a rank fails or outlives ``timeout`` seconds
     (then every rank is stopped)."""
     ctx = torch.multiprocessing.get_context("spawn")
-    port = _free_port()
+    port = free_port()
     procs = [ctx.Process(target=main, args=(r, size, port, cases, out)) for r in range(size)]
     for p in procs:
         p.start()

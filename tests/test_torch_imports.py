@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no JAX, no flax, nothing of the JAX package,
 and nothing of the repository's ``benchmarks``, ``bench`` or ``tests``.
 
-Checked twice: by importing every module of the port in a fresh interpreter
-and listing what got loaded, and by scanning the port's sources (and
-``chip_smoke.py``) for import statements.
+Checked twice: by importing every module of the port, and each of its
+examples (``examples/*_torch.py``), in a fresh interpreter and listing what
+got loaded, and by scanning the port's sources (and ``chip_smoke.py``,
+``bench_torch.py`` and the examples) for import statements.
 """
 
 import ast
@@ -13,10 +14,13 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = "aliasfree_diffusion_models_pytorch_tpu_torch"
 JAX_PKG = "aliasfree_diffusion_models_pytorch_tpu"
 FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "optax", "orbax", "benchmarks", "bench", "tests"}
+EXAMPLES = ["quickstart_torch", "conditional_cfg_torch"]
 
 
 def _forbidden(module: str) -> bool:
@@ -67,6 +71,29 @@ print(json.dumps({{"imported": names, "loaded": sorted(set(sys.modules) - before
     assert not bad, bad
 
 
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_importing_each_example_loads_no_jax(example):
+    """An example imported by its path (its ``main`` guarded) loads the port
+    and nothing forbidden."""
+    code = f"""
+import importlib.util, json, sys
+before = set(sys.modules)
+spec = importlib.util.spec_from_file_location("{example}", "examples/{example}.py")
+module = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(module)
+assert callable(module.main)
+print(json.dumps(sorted(set(sys.modules) - before)))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert PORT + ".train" in loaded and "torch" in loaded
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, bad
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -78,6 +105,7 @@ def _imports(path: pathlib.Path):
 
 def test_port_sources_import_no_jax():
     files = sorted((REPO / PORT).rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
+    files += [REPO / "examples" / f"{name}.py" for name in EXAMPLES]
     assert len(files) > 20
     names = {f.name for f in files}
     assert {"probes.py", "eval.py", "eval_inception.py", "tasks.py", "plotting.py",
