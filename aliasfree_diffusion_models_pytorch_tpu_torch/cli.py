@@ -88,7 +88,9 @@ def _add_train(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint-opt-state", action="store_true",
                    help="checkpoint the optimizer state too (exact resume)")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace of train steps 10-19 here")
+                   help="write a torch.profiler trace of train steps 10-19 here, with the "
+                        "spans train.batch, train.step, train.log, train.epoch_end, "
+                        "graph.warmup and graph.capture")
     p.add_argument("--image-gen-per-epoch", type=int, default=4)
     p.add_argument("--gen-per-batch", type=int, default=200)
     p.add_argument("--gen-total", type=int, default=2000)

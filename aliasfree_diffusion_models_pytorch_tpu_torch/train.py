@@ -103,9 +103,16 @@ from aliasfree_diffusion_models_pytorch_tpu_torch.parallel import (
     world,
 )
 from aliasfree_diffusion_models_pytorch_tpu_torch.parallel.multihost import put_global_batch
+from aliasfree_diffusion_models_pytorch_tpu_torch.utils import spans
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils.graphs import GraphedStep
 
 logger = logging.getLogger(__name__)
+
+# train()'s spans (utils/spans.py): recorded only while a profiler session records
+_BATCH = spans.Span("train.batch")
+_STEP = spans.Span("train.step")
+_LOG = spans.Span("train.log")
+_EPOCH_END = spans.Span("train.epoch_end")
 
 STEP_START_EMA = 2000  # micro-batches during which the EMA copies the parameters
 
@@ -585,13 +592,21 @@ def train(
     sample grids (with ``sample_each_epoch`` and ``config.image_gen_n > 0``),
     ``models/<run>/ckpt_*.npz`` (with ``checkpoint_each_epoch``, overwritten
     each epoch) with ``config.json`` beside it, ``runs/<run>/metrics.jsonl``
-    (a loss record every ``log_every`` steps). ``prefetch`` gathers the next
-    batch on a host thread while the device steps. ``profile_dir`` captures a
+    (a loss record every ``log_every`` steps, with ``device_ms_per_step``:
+    the card's milliseconds a step since the previous record, null at the
+    first and off the card). ``prefetch`` gathers the next batch on a host
+    thread while the device steps. ``profile_dir`` captures a
     ``torch.profiler`` trace (host and device) as
     ``<profile_dir>/trace_<run>.json``, a Chrome trace, of this call's steps
     from ``profile_steps[0]`` up to, not including, ``profile_steps[1]``,
     counted from 0 in every call (the JAX trainer's window counts its global
-    step and takes its last step too).
+    step and takes its last step too). The trace, like any profiler session
+    open around this call, carries the program's spans (``utils/spans.py``):
+    ``train.batch`` (the wait on the loader for a batch), ``train.step``
+    (the batch's copy and the step's launch), ``train.log`` (a log point's
+    loss fetch and record), ``train.epoch_end`` (the epoch's loss mean,
+    sample grid and checkpoint), and the graph runner's ``graph.warmup`` and
+    ``graph.capture``.
 
     Under torch.distributed with more than one rank the run steps on a mesh
     (``mesh``, or :func:`train_mesh`'s): every rank walks the same global
@@ -671,6 +686,7 @@ def train(
     global_step = state.step
     run_step = 0  # steps of this call: the profiler's window counts these
     profiler = None
+    last_mark = None  # (CUDA event, global step) of the last log point
     header = {
         "run_header": config.run_name,
         "variant": config.variant,
@@ -692,7 +708,13 @@ def train(
             # .item() would make the host wait for every step.
             epoch_losses: list[torch.Tensor] = []
             t_start, imgs = time.perf_counter(), 0
-            for images, lbls in dataloader:
+            batches = iter(dataloader)
+            while True:
+                with _BATCH:
+                    item = next(batches, None)
+                if item is None:
+                    break
+                images, lbls = item
                 lbls = np.asarray(lbls, dtype=np.int64) if config.num_classes else None
                 n_real = None
                 if mesh is not None and images.shape[0] % mesh.size:
@@ -704,13 +726,14 @@ def train(
                     images = np.concatenate([images, images[:pad]], axis=0)
                     if lbls is not None:
                         lbls = np.concatenate([lbls, lbls[:pad]], axis=0)
-                batch = put_global_batch(mesh, images, device=device)
-                labels = None if lbls is None else put_global_batch(mesh, lbls, device=device)
                 if profile_dir is not None and writer and run_step == profile_steps[0]:
                     profiler = _start_profiler()
-                state, loss = step_fn(
-                    state, batch, step_generator(generator, config.seed, global_step), labels,
-                    n_real)
+                with _STEP:
+                    batch = put_global_batch(mesh, images, device=device)
+                    labels = None if lbls is None else put_global_batch(mesh, lbls, device=device)
+                    state, loss = step_fn(
+                        state, batch, step_generator(generator, config.seed, global_step),
+                        labels, n_real)
                 epoch_losses.append(loss)
                 imgs += n_real or images.shape[0]
                 global_step += 1
@@ -719,40 +742,55 @@ def train(
                     _stop_profiler(profiler, profile_dir, config.run_name, device)
                     profiler = None
                 if global_step % log_every == 0:
-                    loss_value = float(loss)  # waits for the device, once per log point
-                    dt = time.perf_counter() - t_start
-                    rate = imgs / max(dt, 1e-9)
-                    logger.info("epoch %d step %d loss %.4f (%.1f imgs/s)",
-                                epoch, global_step, loss_value, rate)
-                    if writer:
-                        metrics_f.write(json.dumps({
-                            "epoch": epoch, "step": global_step, "loss": loss_value,
-                            "imgs_per_sec": round(rate, 1), "wall_s": round(dt, 2),
-                        }) + "\n")
-                        metrics_f.flush()
-            loss_all.append(float(torch.stack(epoch_losses).mean()) if epoch_losses else 0.0)
+                    with _LOG:
+                        # The card's ms a step since the last log point (None at the
+                        # first and off the card; an epoch end in between counts in
+                        # it), from an event that float(loss) waits past.
+                        mark = None
+                        if device.type == "cuda":
+                            mark = torch.cuda.Event(enable_timing=True)
+                            mark.record()
+                        loss_value = float(loss)  # waits for the device, once per log point
+                        dt = time.perf_counter() - t_start
+                        rate = imgs / max(dt, 1e-9)
+                        device_ms = None
+                        if mark is not None and last_mark is not None:
+                            device_ms = (last_mark[0].elapsed_time(mark)
+                                         / (global_step - last_mark[1]))
+                        last_mark = None if mark is None else (mark, global_step)
+                        logger.info("epoch %d step %d loss %.4f (%.1f imgs/s)",
+                                    epoch, global_step, loss_value, rate)
+                        if writer:
+                            metrics_f.write(json.dumps({
+                                "epoch": epoch, "step": global_step, "loss": loss_value,
+                                "imgs_per_sec": round(rate, 1), "wall_s": round(dt, 2),
+                                "device_ms_per_step": device_ms,
+                            }) + "\n")
+                            metrics_f.flush()
+            with _EPOCH_END:
+                loss_all.append(float(torch.stack(epoch_losses).mean()) if epoch_losses else 0.0)
 
-            # Under FSDP every rank takes part in the gathers, so every rank
-            # takes the same branches; rank 0 writes.
-            if sample_each_epoch and config.image_gen_n > 0:
-                weights = state.gather(state.ema_params if config.use_ema else state.params)
-                if writer:
-                    with torch.no_grad():
-                        torch._foreach_copy_([p for _, p in model.named_parameters()],
-                                             list(weights.values()))
-                    # Epoch sampling draws from its own index range, above
-                    # every per-step index.
-                    final, _ = diffusion.sample(
-                        model, n=config.image_gen_n, image_channels=config.image_channels,
-                        generator=step_generator(generator, config.seed, 2**31 + epoch))
-                    save_image_grid(final.cpu().numpy(),
-                                    os.path.join(config.results_dir(root), f"{epoch}.jpg"))
-            if checkpoint_each_epoch:
-                params, ema = state.gather(state.params), state.gather(state.ema_params)
-                opt_state = (ckpt_lib.opt_state_arrays(config, state)
-                             if config.checkpoint_opt_state else None)
-                if writer:
-                    ckpt_lib.save_checkpoint(ckpt_path, params, ema, state.step, opt_state)
+                # Under FSDP every rank takes part in the gathers, so every rank
+                # takes the same branches; rank 0 writes.
+                if sample_each_epoch and config.image_gen_n > 0:
+                    weights = state.gather(state.ema_params if config.use_ema else state.params)
+                    if writer:
+                        with torch.no_grad():
+                            torch._foreach_copy_([p for _, p in model.named_parameters()],
+                                                 list(weights.values()))
+                        # Epoch sampling draws from its own index range, above
+                        # every per-step index.
+                        final, _ = diffusion.sample(
+                            model, n=config.image_gen_n, image_channels=config.image_channels,
+                            generator=step_generator(generator, config.seed, 2**31 + epoch))
+                        save_image_grid(final.cpu().numpy(),
+                                        os.path.join(config.results_dir(root), f"{epoch}.jpg"))
+                if checkpoint_each_epoch:
+                    params, ema = state.gather(state.params), state.gather(state.ema_params)
+                    opt_state = (ckpt_lib.opt_state_arrays(config, state)
+                                 if config.checkpoint_opt_state else None)
+                    if writer:
+                        ckpt_lib.save_checkpoint(ckpt_path, params, ema, state.step, opt_state)
     if profiler is not None:  # the run ended inside the window
         _stop_profiler(profiler, profile_dir, config.run_name, device)
     return loss_all

@@ -29,6 +29,12 @@ Launch counts. The kernel wrappers count their launches in Python
 nothing, so the counts the capture added are taken back and added again on
 every replay: a count reads the launches the card made.
 
+Tracing (``utils/spans.py``). While a torch.profiler session records, the
+warm-up and the capture run in the spans ``graph.warmup`` and
+``graph.capture`` (a capture in the middle of a run is a stall), and each
+replay counts ``graph.lead``: the earlier replays the card had not finished
+when the host launched it.
+
 Randomness. The step draws from :attr:`GraphedStep.generator`, which every
 graph registers (``CUDAGraph.register_generator_state``): a replay advances
 its Philox offset as an eager step does. :meth:`GraphedStep.drawing_from`
@@ -44,7 +50,10 @@ from typing import Hashable
 
 import torch
 
-from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
+from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels, spans
+
+_WARMUP = spans.Span("graph.warmup")
+_CAPTURE = spans.Span("graph.capture")
 
 
 def default_generator(device: torch.device) -> torch.Generator:
@@ -94,10 +103,12 @@ class GraphedStep:
         elif variant in self._captured:
             self._replay(variant)
         elif variant in self._warm:
-            self._captured[variant] = self._capture(variant)
+            with _CAPTURE:
+                self._captured[variant] = self._capture(variant)
             self._replay(variant)
         else:
-            self._warm_up(variant)
+            with _WARMUP:
+                self._warm_up(variant)
 
     def _warm_up(self, variant) -> None:
         stream = torch.cuda.current_stream(self.device)
@@ -123,6 +134,9 @@ class GraphedStep:
 
     def _replay(self, variant) -> None:
         graph, per_replay = self._captured[variant]
+        ring = spans.count_lead()
         graph.replay()
+        if ring is not None:
+            ring.launched_one()
         for wrapper, count in zip(kernels.COUNTED, per_replay):
             wrapper.launches += count
