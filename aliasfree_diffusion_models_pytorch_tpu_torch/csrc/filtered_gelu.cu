@@ -54,6 +54,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gelu.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -150,62 +152,14 @@ __device__ __forceinline__ void store_words(T* p, const float* v) {
   }
 }
 
-// The GELU forms, as ops/resample.py:gelu_form names them (FG_GELU_FORMS, in this order): the
-// form is a template parameter of the kernels, so each instantiation has one form and no branch.
-// AFDM_GELU picks it for bf16, as in the JAX package (ops/resample.py:305-343): unset, the
-// degree-15 polynomial; poly13, the degree-13 one; exact, the erf form. f32 takes erf always.
-constexpr int kGeluPoly15 = 0, kGeluPoly13 = 1, kGeluErf = 2;
-
-// The port's gelu_exact (ops/resample.py) on bf16: x·(0.5 + x_c·R(x_c²)), x_c = clamp(x, ±3.2·√2),
-// R the JAX package's degree-15 (or degree-13) bf16 fit, each product and sum rounded as torch
-// rounds them.
-constexpr float kClamp = 4.5254833995939045f;
-__constant__ float kPoly[8] = {
-    0.39847720532397357f, -0.06533923798456039f, 0.009128171697420397f,
-    -0.0008978316975850138f, 5.914830951568466e-05f, -2.454260270985954e-06f,
-    5.750126543924546e-08f, -5.770954416805585e-10f};
-__constant__ float kPoly13[7] = {
-    0.39736903338755974f, -0.06336353822103462f, 0.008126449758425384f,
-    -0.0006760143548142659f, 3.4051160496925107e-05f, -9.359854638467884e-07f,
-    1.0721949130855751e-08f};
-
-// Coefficient i of the form's polynomial, from constant memory (i is a constant once unrolled).
-template <int G>
-struct Poly {
-  static constexpr int N = G == kGeluPoly13 ? 7 : 8;
-  static __device__ __forceinline__ float at(int i) {
-    if constexpr (G == kGeluPoly13) return kPoly13[i];
-    return kPoly[i];
-  }
-};
-
-template <int G>
-__device__ __forceinline__ float gelu_poly(float x) {
-  constexpr int N = Poly<G>::N;
-  const float xc = fminf(fmaxf(x, -kClamp), kClamp);
-  const float t = __fmul_rn(xc, xc);
-  float p = Poly<G>::at(N - 1);
-#pragma unroll
-  for (int i = N - 2; i >= 0; --i) p = __fadd_rn(__fmul_rn(p, t), Poly<G>::at(i));
-  return __fmul_rn(x, __fadd_rn(0.5f, __fmul_rn(xc, p)));
-}
-
-// d/dx of gelu_poly: h + x·(R + 2t·R'(t)) inside the clamp, h = 0.5 + x_c·R outside it (the
-// clamp's slope is zero there), as autograd of the plain version gives it.
-template <int G>
-__device__ __forceinline__ float gelu_poly_grad(float x) {
-  constexpr int N = Poly<G>::N;
-  const float xc = fminf(fmaxf(x, -kClamp), kClamp);
-  const float t = xc * xc;
-  float p = Poly<G>::at(N - 1), dp = 0.f;
-#pragma unroll
-  for (int i = N - 2; i >= 0; --i) {
-    dp = fmaf(dp, t, p);
-    p = fmaf(p, t, Poly<G>::at(i));
-  }
-  const float h = fmaf(xc, p, 0.5f);
-  return (x >= -kClamp && x <= kClamp) ? fmaf(x, fmaf(2.f * t, dp, p), h) : h;
-}
+// The GELU forms (kGeluPoly15, kGeluPoly13, kGeluErf) and the bf16 polynomial with its
+// derivative (gelu_poly, gelu_poly_grad) are gelu.cuh's, shared with the plain GELU's kernels
+// (plain_gelu.cu), so that the two cannot drift apart.
+using afdm::gelu_poly;
+using afdm::gelu_poly_grad;
+using afdm::kGeluErf;
+using afdm::kGeluPoly13;
+using afdm::kGeluPoly15;
 
 // torch's exact GELU and its derivative (GeluType::None), in f32: torch computes a bf16 GELU in
 // f32 too and rounds once, so the bf16 erf form rounds where the plain version does.

@@ -1,4 +1,5 @@
-"""Alias-free resampling ops, and the filtered GELU's CUDA kernel pair.
+"""Alias-free resampling ops, and the CUDA kernel pairs of the filtered and
+the plain bf16 GELU.
 
 Port of ``aliasfree_diffusion_models_pytorch_tpu/ops/resample.py``. Layout is
 NCHW here (PyTorch's convolution layout); the JAX package's functions take
@@ -20,6 +21,11 @@ counterpart:
   ``csrc/filtered_gelu.cu`` (``filtered_gelu_fwd``, ``filtered_gelu_bwd``,
   tied by a ``torch.autograd.Function``), which keeps every intermediate on
   chip and saves only x for the backward.
+* ``gelu_exact``: the GELU. On bf16 it is the JAX package's polynomial
+  (``gelu_poly``, the plain version and the CPU's path); on the card the
+  kernel pair of ``csrc/plain_gelu.cu`` (``plain_gelu_fwd``,
+  ``plain_gelu_bwd``), which share the polynomial with the filtered GELU's
+  (``csrc/gelu.cuh``).
 
 Parity trap preserved: the reference's ``custom_upsample`` does **not**
 apply the ``factor**2`` gain compensation of StyleGAN3, so ``gain`` defaults
@@ -53,6 +59,9 @@ __all__ = [
     "gelu_exact",
     "gelu_mode",
     "gelu_form",
+    "gelu_poly",
+    "plain_gelu_fwd",
+    "plain_gelu_bwd",
     "phase_terms",
     "filtered_gelu_phases",
     "filtered_gelu_fwd",
@@ -153,10 +162,28 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """Exact-erf GELU (torch's ``F.gelu``) with the JAX package's bf16 fast
     path: on bf16 a polynomial evaluated in f32 and rounded once, degree 15 or
     13 (:func:`gelu_form`); ``AFDM_GELU=exact`` forces the erf form, which on
-    bf16 torch also computes in f32 and rounds once."""
+    bf16 torch also computes in f32 and rounds once. The polynomial on a CUDA
+    tensor is the kernel pair of ``csrc/plain_gelu.cu`` (:func:`plain_gelu_fwd`,
+    :func:`plain_gelu_bwd`, tied by a ``torch.autograd.Function`` that saves
+    only x); elsewhere it is :func:`gelu_poly`, with autograd's backward."""
     form = gelu_form(x.dtype)
     if form == "erf":
         return F.gelu(x)
+    if x.device.type == "cuda":
+        return _PlainGelu.apply(x)
+    return gelu_poly(x)
+
+
+def gelu_poly(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 polynomial GELU of :func:`gelu_form` (``poly15`` or
+    ``poly13``) composed of PyTorch operations: x·(0.5 + x_c·R(x_c²)), x_c the
+    input clamped to ±3.2·√2, each f32 product and sum rounded in Horner's
+    order, the result rounded once to x's dtype. The plain version of the
+    kernel pair ``csrc/plain_gelu.cu``, and the CPU's path."""
+    form = gelu_form(x.dtype)
+    if form == "erf":
+        raise ValueError(f"gelu_poly takes the polynomial forms, and {x.dtype} under "
+                         f"AFDM_GELU={gelu_mode()} is the erf form")
     coefs = _GELU_POLY_13 if form == "poly13" else _GELU_POLY_15
     xf = x.float()
     xc = xf.clamp(-_GELU_CLAMP, _GELU_CLAMP)
@@ -165,6 +192,118 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     for coef in coefs[-2::-1]:
         p = p * t + coef
     return (xf * (0.5 + xc * p)).to(x.dtype)
+
+
+@functools.cache
+def _pg_lib() -> ctypes.CDLL:
+    lib = kernels.load("plain_gelu")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.afdm_plain_gelu.argtypes = [vp, vp, vp, ctypes.c_longlong, ci, ci, vp]
+    lib.afdm_plain_gelu.restype = ci
+    lib.afdm_cuda_error_string.argtypes = [ci]
+    lib.afdm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _dense(x: torch.Tensor) -> bool:
+    """Whether x's elements fill the span of storage they lie in, each once:
+    its strides, smallest first, are the running products of its sizes in
+    some order of its dimensions (NCHW, channels-last, a transposed view)."""
+    expected = 1
+    for size, stride in sorted(((n, s) for n, s in zip(x.shape, x.stride()) if n != 1),
+                               key=lambda d: d[1]):
+        if stride != expected:
+            return False
+        expected *= size
+    return True
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _pg_launch(x: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
+    """Checks and launches one kernel of the plain GELU pair: the forward
+    without ``g``, the backward with it, in the form :func:`gelu_form` gives.
+    The result is a new tensor with x's strides; an empty x launches nothing."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the plain GELU kernels take bfloat16, got {x.dtype}")
+    form = gelu_form(x.dtype)
+    if form == "erf":
+        raise ValueError("the plain GELU kernels take the polynomial forms, not erf "
+                         "(AFDM_GELU=exact takes F.gelu)")
+    if not _dense(x):
+        raise ValueError(f"x must be dense and non-overlapping, got shape {tuple(x.shape)} "
+                         f"strides {x.stride()}")
+    if g is not None and (g.device != x.device or g.dtype != x.dtype or g.shape != x.shape
+                          or g.stride() != x.stride()):
+        raise ValueError(f"g must be laid out as x: {g.dtype} {tuple(g.shape)} {g.stride()} on "
+                         f"{g.device} against {tuple(x.shape)} {x.stride()}")
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    lib = _pg_lib()
+    with torch.cuda.device(x.device):
+        err = lib.afdm_plain_gelu(
+            x.data_ptr(), None if g is None else g.data_ptr(), y.data_ptr(), x.numel(),
+            FG_GELU_FORMS.index(form), _sm_count(x.device.index),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"plain_gelu launch failed: {lib.afdm_cuda_error_string(err).decode()}")
+    return y
+
+
+def plain_gelu_fwd(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 polynomial GELU's forward kernel on a CUDA tensor that is
+    dense and non-overlapping (any order of its dimensions); a CPU tensor
+    takes :func:`gelu_poly`. ``launches`` counts the calls that reached the
+    card."""
+    if x.device.type == "cpu":
+        return gelu_poly(x)
+    _check_device(x, "plain_gelu_fwd")
+    y = _pg_launch(x, None)
+    plain_gelu_fwd.launches += int(x.numel() > 0)
+    return y
+
+
+kernels.count_launches(plain_gelu_fwd)
+
+
+def plain_gelu_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dx of the bf16 polynomial GELU for the cotangent ``g`` (laid out as
+    x): the backward kernel on a CUDA tensor; on a CPU tensor autograd of
+    :func:`gelu_poly`. ``launches`` counts the calls that reached the card."""
+    if x.device.type == "cpu":
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_()
+            return torch.autograd.grad(gelu_poly(xg), xg, g)[0]
+    _check_device(x, "plain_gelu_bwd")
+    dx = _pg_launch(x, g)
+    plain_gelu_bwd.launches += int(x.numel() > 0)
+    return dx
+
+
+kernels.count_launches(plain_gelu_bwd)
+
+
+class _PlainGelu(torch.autograd.Function):
+    """Forward saves x alone (made dense first if it is not); backward is the
+    backward kernel, on the cotangent laid out as x."""
+
+    @staticmethod
+    def forward(ctx, x):
+        if not _dense(x):
+            x = x.contiguous()
+        ctx.save_for_backward(x)
+        return plain_gelu_fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        if g.stride() != x.stride():
+            g = torch.empty_like(x).copy_(g)
+        return plain_gelu_bwd(x, g)
 
 
 def fg_impl_override() -> str | None:
@@ -289,8 +428,9 @@ FG_MIN_ROWS = 2
 # Threads a call should have before its strips are made shorter: about what
 # the card holds at once (132 SMs × 512 threads at the pair's register counts).
 FG_TARGET_THREADS = 65536
-# The kernels' GELU forms, by the index the C interface takes (csrc/
-# filtered_gelu.cu: kGeluPoly15, kGeluPoly13, kGeluErf); f32 takes "erf" only.
+# The kernels' GELU forms, by the index the C interfaces take (csrc/gelu.cuh:
+# kGeluPoly15, kGeluPoly13, kGeluErf); the filtered GELU's f32 takes "erf"
+# only, the plain GELU's kernels the first two.
 FG_GELU_FORMS = ("poly15", "poly13", "erf")
 
 

@@ -6,10 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. names the card (``nvidia-smi`` name and power limit, torch's device name);
 2. builds every hand-written kernel from ``csrc/`` with nvcc (sm_90a), all
    sources at once (``flash_fwd``, ``flash_bwd``, ``exp_chain``,
-   ``qk_rowsum``, ``filtered_gelu``), and prints the build seconds and each
-   kernel's registers and spill bytes from ptxas; every attention kernel,
-   bf16 and f32 (every f32 instantiation must be listed), D = 128 included,
-   the filtered-GELU pair and ``qk_rowsum`` must spill nothing; every
+   ``qk_rowsum``, ``filtered_gelu``, ``plain_gelu``), and prints the build
+   seconds and each kernel's registers and spill bytes from ptxas; every
+   attention kernel, bf16 and f32 (every f32 instantiation must be listed),
+   D = 128 included, both GELU pairs and ``qk_rowsum`` must spill nothing; every
    ``qk_rowsum`` instantiation must hold ``HGMMA`` and ``UTMALDG`` and no
    ``HMMA`` in its machine code (``cuobjdump -sass``), and start with the
    registers its ``setmaxnreg`` hand-over adds up to;
@@ -54,6 +54,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    instantiations, and runs the graphed 32-px step at batch 256 in the
    default mode and then under ``poly13``, which must capture graphs of its
    own;
+3c. holds the plain GELU's pair (``csrc/plain_gelu.cu``) at every shape and
+   layout of ``gelu_exact`` in the bf16 Config-A step at batch 256 (28
+   calls: GroupNorm's NCHW outputs, the feed-forward's (n, S, C) tokens)
+   bit-equal to the composed form and to autograd through it, times it
+   forward and backward beside its bound and the composed form, summed per
+   step, and checks its four instantiations spill nothing and the
+   filtered-GELU pair's side-32 registers (118 / 125 at degree 15, 114 /
+   126 at degree 13) did not move with the shared header ``csrc/gelu.cuh``;
 4. runs the full-width Config-D UNet forward (n=16) in f32 on the card
    against the same weights on the CPU (TF32 off), and in bf16, counting 6
    attention launches per forward and the filtered-GELU launches (the conv
@@ -2032,9 +2040,10 @@ def phase_bench(step_rows: list[dict]) -> dict:
     fg = ref["fg_launches_per_step"] * n
     check(launches.get("flash_attention_fwd") == 6 * n
           and launches.get("flash_attention_bwd") == 6 * n
-          and launches.get("filtered_gelu_fwd") == launches.get("filtered_gelu_bwd") == fg > 0,
-          f"bench launches {launches}: expected {6 * n} attention and {fg} filtered-GELU "
-          "launches each way")
+          and launches.get("filtered_gelu_fwd") == launches.get("filtered_gelu_bwd") == fg > 0
+          and launches.get("plain_gelu_fwd") == launches.get("plain_gelu_bwd") == 6 * n,
+          f"bench launches {launches}: expected {6 * n} attention, {fg} filtered-GELU and "
+          f"{6 * n} plain-GELU launches each way")
     log(f"  bench: {res['value']} imgs/s/chip, step {res['step_ms']} ms (phase 6: "
         f"{ref['step_ms']:.2f} ms), mfu {res['mfu']}, train64 {res['train64_step_ms']} ms "
         f"(mfu {res['train64_mfu']}), DDPM-1000 {res['sample_1000step_n16_wall_s']} s, DDIM-50 "
@@ -2446,6 +2455,126 @@ def phase_gelu_modes(rs, fgres, ptxas, config) -> dict:
                 graphed_step=graphed, signatures=len(sigs))
 
 
+# Phase 2g: the plain GELU's kernel pair (csrc/plain_gelu.cu) at every shape
+# and layout gelu_exact takes in one bf16 Config-A train step at batch 256 (a
+# spy on the blocks' gelu_exact: the 22 DoubleConv GELUs on GroupNorm's NCHW
+# output, the six feed-forward GELUs on Linear's (n, S, C) output). The least
+# work of a call: x read once and the result written once, g read once more
+# in the backward (4 and 6 bytes an element); the polynomial in about 12 f32
+# instructions an element, its derivative in about 20. The filtered-GELU
+# pair's side-32 registers at degree 15 and 13, forward / backward, as they
+# were before its polynomial moved into the shared header csrc/gelu.cuh,
+# must not move.
+PG_OPS = {False: 12, True: 20}
+FG_SIDE32_REGISTERS = {"poly15": (118, 125), "poly13": (114, 126)}
+
+
+def pg_times(numel: int, backward: bool) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one plain-GELU call."""
+    nbytes = (6 if backward else 4) * numel
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * numel * PG_OPS[backward] / FMA_PER_S
+
+
+def pg_step_calls(unet_mod, blocks, config) -> dict:
+    """{(shape, strides): calls} of gelu_exact in one forward of the bf16
+    UNet of ``config`` on the card (the backward calls the same)."""
+    model = unet_mod.build_model(config, device="cuda")
+    calls: dict = {}
+    real = blocks.gelu_exact
+
+    def spy(x):
+        key = (tuple(x.shape), x.stride())
+        calls[key] = calls.get(key, 0) + 1
+        return real(x)
+
+    blocks.gelu_exact = spy
+    try:
+        with torch.no_grad():
+            n = config.batch_size
+            model(torch.zeros((n, config.image_size, config.image_size, 3), device="cuda"),
+                  torch.ones((n,), dtype=torch.long, device="cuda"))
+    finally:
+        blocks.gelu_exact = real
+    del model
+    torch.cuda.empty_cache()
+    return calls
+
+
+def phase_plain_gelu(rs, unet_mod, blocks, ptxas) -> dict:
+    """The plain GELU's pair at Config A's shapes: bit-equal to the composed
+    form and to autograd through it, timed beside the composed form and the
+    bound, summed per step; its registers and spills, and the filtered-GELU
+    pair's side-32 registers after the header move."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.config import TrainConfig
+
+    config = TrainConfig(image_size=32, image_channels=3, variant=0, batch_size=256,
+                         compute_dtype="bfloat16", filters=None)
+    calls = pg_step_calls(unet_mod, blocks, config)
+    total = sum(calls.values())
+    check(total == 28, f"Config A: {total} gelu_exact calls a forward, expected 28")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for (shape, stride), n in calls.items():
+        x = torch.empty_strided(shape, stride, device="cuda", dtype=torch.bfloat16)
+        g = torch.empty_strided(shape, stride, device="cuda", dtype=torch.bfloat16)
+        x.copy_(3 * torch.randn(shape, generator=gen, device="cuda"))
+        g.copy_(torch.randn(shape, generator=gen, device="cuda"))
+        y, dx = rs.plain_gelu_fwd(x), rs.plain_gelu_bwd(x, g)
+        xg = x.clone().requires_grad_()
+        ref = rs.gelu_poly(xg)
+        (ref_dx,) = torch.autograd.grad(ref, xg, g, retain_graph=True)
+        torch.cuda.synchronize()
+        differ = (int((y != ref).sum()), int((dx != ref_dx).sum()))
+        check(differ == (0, 0) and y.stride() == stride,
+              f"plain_gelu {shape} {stride}: {differ} elements differ fwd / bwd, strides "
+              f"{y.stride()}")
+        row = dict(shape=list(shape), strides=list(stride), calls=n)
+        timed = {
+            "fwd_ms": (lambda: rs.plain_gelu_fwd(x), {"plain_gelu_fwd": 1}),
+            "bwd_ms": (lambda: rs.plain_gelu_bwd(x, g), {"plain_gelu_bwd": 1}),
+            "composed_fwd_ms": (lambda: rs.gelu_poly(x), None),
+            "composed_bwd_ms": (lambda: torch.autograd.grad(ref, xg, g, retain_graph=True),
+                                None),
+        }
+        for key, (fn, per_call) in timed.items():
+            row[key] = device_ms(fn, iters=10 if per_call else 3, per_call=per_call)
+        numel = math.prod(shape)
+        for key, bwd in (("fwd", False), ("bwd", True)):
+            row[f"{key}_bound_ms"], _ = bound([pg_times(numel, bwd)])
+        rows.append(row)
+        log(f"  {str(shape):<22} {str(stride):<22} x{n}: device us fwd/bwd: kernel "
+            f"{row['fwd_ms'] * 1e3:7.1f} {row['bwd_ms'] * 1e3:7.1f} bound "
+            f"{row['fwd_bound_ms'] * 1e3:6.1f} {row['bwd_bound_ms'] * 1e3:6.1f} composed "
+            f"{row['composed_fwd_ms'] * 1e3:8.1f} {row['composed_bwd_ms'] * 1e3:8.1f}")
+        del x, g, y, dx, xg, ref, ref_dx
+    torch.cuda.empty_cache()
+    step = {key: sum(r["calls"] * r[key] for r in rows)
+            for key in ("fwd_ms", "bwd_ms", "composed_fwd_ms", "composed_bwd_ms")}
+    times = [pg_times(math.prod(r["shape"]), bwd) for r in rows
+             for bwd in (False, True) for _ in range(r["calls"])]
+    step["bound_ms"], step["bound_by"] = bound(times)
+    step["calls"] = total
+    log(f"  per Config-A step at batch 256 ({total} calls, forward + backward): kernel "
+        f"{step['fwd_ms'] + step['bwd_ms']:.3f} ms ({step['fwd_ms']:.3f} + {step['bwd_ms']:.3f}),"
+        f" bound {step['bound_ms']:.3f} ({step['bound_by']}), composed "
+        f"{step['composed_fwd_ms'] + step['composed_bwd_ms']:.3f}")
+    regs = [e for e in ptxas if e["library"] == "plain_gelu"]
+    check(len(regs) == 4 and not any(e["spill_stores"] + e["spill_loads"] for e in regs),
+          f"plain_gelu: instantiations missing or spilling: {regs}")
+    side32 = {}
+    for form in FG_SIDE32_REGISTERS:
+        index = rs.FG_GELU_FORMS.index(form)
+        side32[form] = tuple(
+            next(e["registers"] for e in ptxas if e["library"] == "filtered_gelu"
+                 and e["kernel"] == f"filtered_gelu_{way}_kernel<bf16, 3, 32, 8, {index}>")
+            for way in ("fwd", "bwd"))
+    log(f"  plain_gelu registers: " + ", ".join(f"{e['kernel']} {e['registers']}" for e in regs)
+        + f"; filtered-GELU pair at side 32, fwd / bwd: {side32}")
+    check(side32 == FG_SIDE32_REGISTERS,
+          f"filtered-GELU pair's side-32 registers {side32}, were {FG_SIDE32_REGISTERS}")
+    return dict(rows=rows, per_step=step, ptxas=regs, fg_side32_registers=side32)
+
+
 # Phase 6c: the step on a one-rank NCCL mesh (torch.distributed with this
 # process as rank 0 of 1), graphed: the 32-px Config-D bf16 step at batch 256
 # on a data mesh and on an fsdp mesh of size 1, in turns with the
@@ -2841,8 +2970,9 @@ def main() -> int:
     # Every attention kernel, bf16 and f32, and the filtered-GELU pair keep
     # every value in registers; the report holds every f32 instantiation.
     spilled = [e["kernel"] for e in ptxas if e["spill_stores"] + e["spill_loads"] and (
-        e["library"] in ("filtered_gelu", "qk_rowsum") or e["library"].startswith("flash_"))]
-    check(not spilled, f"attention, filtered-GELU or qk_rowsum kernels spill: {spilled}")
+        e["library"] in ("filtered_gelu", "plain_gelu", "qk_rowsum")
+        or e["library"].startswith("flash_"))]
+    check(not spilled, f"attention, GELU or qk_rowsum kernels spill: {spilled}")
     # qk_rowsum runs on wgmma and TMA in every instantiation, with no mma.sync left
     qk_sass = sass_report(kernels.library_path("qk_rowsum"))
     for label, ops in qk_sass.items():
@@ -2894,6 +3024,9 @@ def main() -> int:
         "graphed step under poly13")
     gelu_modes = phase_gelu_modes(rs, fgres, ptxas, config)
     done("gelu modes")
+    log("[2g] plain GELU pair vs the composed form at Config A's step shapes")
+    pgres = phase_plain_gelu(rs, unet_mod, blocks, ptxas)
+    done("plain_gelu kernels")
     log("[3] full-width Config-D UNet forward and sampler, card vs cpu")
     fg = phase_unet(fa, rs, weights, unet_mod, config)
     done("unet card vs cpu")
@@ -3115,6 +3248,24 @@ def main() -> int:
         "shapes": fgres["rows"],
         # the examples run in f32, which takes the conv form: 0 launches
         "main_path_runs": train_runs + runs + examples,
+    }, {
+        "name": "plain_gelu",
+        "route": "cuda",
+        "source": "aliasfree_diffusion_models_pytorch_tpu_torch/csrc/plain_gelu.cu",
+        "replaces": "aliasfree_diffusion_models_pytorch_tpu/ops/resample.py:305 (XLA-fused)",
+        # times: every gelu_exact call of one bf16 32-px Config-A train step
+        # at batch 256, forward and backward; the yardstick is the composed
+        # form (gelu_poly) with autograd's backward, which the port ran before
+        "ms": pgres["per_step"]["fwd_ms"] + pgres["per_step"]["bwd_ms"],
+        "plain_ms": pgres["per_step"]["composed_fwd_ms"] + pgres["per_step"]["composed_bwd_ms"],
+        "bound_ms": pgres["per_step"]["bound_ms"],
+        "bound_by": pgres["per_step"]["bound_by"],
+        "library_ms": None,
+        "max_abs_err": 0.0,  # bit-equal, forward and backward, at every shape
+        "kernels_per_launch": 1,
+        "ptxas": pgres["ptxas"],
+        "fg_side32_registers": pgres["fg_side32_registers"],
+        "shapes": pgres["rows"],
     }], "bench": bench_res,
         "graphs": graph_res,
         "distributed": dist_res,

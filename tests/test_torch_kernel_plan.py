@@ -104,7 +104,7 @@ def test_an_edited_shared_header_renames_every_library_that_may_include_it(tmp_p
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["attn_f32.cuh", "mma_bf16.cuh", "sm90.cuh"]
+    assert [h.name for h in headers] == ["attn_f32.cuh", "gelu.cuh", "mma_bf16.cuh", "sm90.cuh"]
     before = {name: kernels.library_path(name, csrc) for name in kernels.SOURCES}
     assert before == {name: kernels.library_path(name) for name in kernels.SOURCES}
     headers[0].write_text(headers[0].read_text() + "\n// edited\n")
