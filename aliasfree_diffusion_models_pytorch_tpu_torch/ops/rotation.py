@@ -15,6 +15,12 @@ pixels, built once and applied after every sampler step:
 Both are plain PyTorch (``torch.matmul``, ``einsum``, indexing), as the JAX
 package leaves them to XLA. Integer grid-wrap translation is a roll;
 fractional offsets apply scipy's 1-D spline shift operators per axis.
+
+Tracing (``utils/spans.py``). While a torch.profiler session records, each
+:func:`build_rotation` runs in the span ``rotation.build`` (the cache lookup,
+the build on the host, the copy to the device) and counts ``rotation.built``:
+1 when it built the operator or plan, 0 when a cache served it. The per-step
+apply runs inside the sampler's CUDA graph, where no span runs.
 """
 
 from __future__ import annotations
@@ -25,9 +31,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from aliasfree_diffusion_models_pytorch_tpu_torch.utils import spans
+
 # Largest image side for the dense (H*W, H*W) operator: 64 → 64 MB fp32.
 # Above it, rotation takes the gather plan at the same spline order.
 _MAX_DENSE_OPERATOR_SIZE = 64
+
+_BUILD = spans.Span("rotation.build")
 
 
 class GatherRotation(NamedTuple):
@@ -158,15 +168,24 @@ def rotation_operator(size: int, degrees: float, order: int = 3) -> np.ndarray:
 def build_rotation(size: int, degrees: float, order: int = 3, device="cuda"):
     """The per-step rotation operand on ``device``: the dense operator up to
     64 px, else the :class:`GatherRotation` plan (both at the requested
-    spline order, both scipy's map)."""
-    if size <= _MAX_DENSE_OPERATOR_SIZE:
-        return torch.from_numpy(rotation_operator(size, float(degrees), order)).to(device)
-    plan = rotation_gather_plan(size, float(degrees), order)
-    return GatherRotation(
-        idx=torch.from_numpy(plan.idx).to(device=device, dtype=torch.long),
-        w=torch.from_numpy(plan.w).to(device),
-        pre=None if plan.pre is None else torch.from_numpy(plan.pre).to(device),
-    )
+    spline order, both scipy's map). Traced as ``rotation.build`` and
+    ``rotation.built`` (module docstring)."""
+    dense = size <= _MAX_DENSE_OPERATOR_SIZE
+    cache = rotation_operator if dense else rotation_gather_plan
+    with _BUILD:
+        misses = cache.cache_info().misses if spans.live() else None
+        if dense:
+            operand = torch.from_numpy(rotation_operator(size, float(degrees), order)).to(device)
+        else:
+            plan = rotation_gather_plan(size, float(degrees), order)
+            operand = GatherRotation(
+                idx=torch.from_numpy(plan.idx).to(device=device, dtype=torch.long),
+                w=torch.from_numpy(plan.w).to(device),
+                pre=None if plan.pre is None else torch.from_numpy(plan.pre).to(device),
+            )
+        if misses is not None:
+            spans.count("rotation.built", cache.cache_info().misses - misses)
+    return operand
 
 
 def apply_pixel_operator(x: torch.Tensor, m) -> torch.Tensor:

@@ -22,13 +22,17 @@ session, in order. ``graph.lead`` (:func:`count_lead`, counted by
 ``utils/graphs.py:GraphedStep`` before each graph replay): how many earlier
 replays the card had not finished when the host launched this one. 0 means
 the card had finished every launched replay and waited for this launch.
+Other counters go through :func:`count`: ``rotation.built``
+(``ops/rotation.py:build_rotation``, inside its span ``rotation.build``) is 1
+when the call built its operator or plan and 0 when a cache served it.
 
 The record holds the latest session only: the first site that finds a
 session after a site found none starts it afresh. The profiler is one per
 process, so the record is too; its sites run on the thread that steps.
 
 Readers: ``portbench/metrics/batch_wait_ms.train.py`` (``train.batch``),
-``host_ahead.train.py`` and ``host_ahead.sample.py`` (``graph.lead``).
+``host_ahead.train.py`` and ``host_ahead.sample.py`` (``graph.lead``),
+``rot_build_ms.sample.py`` (``rotation.build`` and ``rotation.built``).
 """
 
 from __future__ import annotations
@@ -88,6 +92,21 @@ class Span:
             _, index, annotation = SESSION.open.pop()
             SESSION.spans[index][2] = time.perf_counter_ns()
             annotation.__exit__(None, None, None)
+
+
+def live() -> bool:
+    """Whether a profiler session records: a site that computes a counter's
+    value tests this first, so that off a session it computes nothing."""
+    return _profiler._is_profiler_enabled
+
+
+def count(name: str, value: int) -> None:
+    """Under a session, append ``value`` to counter ``name``."""
+    if not _profiler._is_profiler_enabled:
+        SESSION.stale = True
+        return
+    SESSION.start()
+    SESSION.counters.setdefault(name, []).append(int(value))
 
 
 class LeadRing:
