@@ -36,6 +36,7 @@ from torch import nn
 from aliasfree_diffusion_models_pytorch_tpu_torch.config import FilterSettings
 from aliasfree_diffusion_models_pytorch_tpu_torch.ops.filters import circular_lowpass_kernel
 from aliasfree_diffusion_models_pytorch_tpu_torch.ops.flash_attention import flash_mha
+from aliasfree_diffusion_models_pytorch_tpu_torch.ops.layer_norm import TokenLayerNorm
 from aliasfree_diffusion_models_pytorch_tpu_torch.ops.resample import (
     downsample2x,
     filtered_gelu,
@@ -219,7 +220,9 @@ class SelfAttention(nn.Module):
     ``nn.MultiheadAttention``'s packed layout, xavier init, zero bias); the
     out-projection bias is zero at init. Every call goes through
     :func:`flash_mha`: the CUDA kernels on the card (forward, and backward
-    under autograd), their plain versions on the CPU.
+    under autograd), their plain versions on the CPU. Both LayerNorms are
+    :class:`TokenLayerNorm`: ``ln`` reads the NCHW map in place through the
+    tokens view, ``ff_ln`` the residual sum in row order.
     """
 
     def __init__(self, channels: int, num_heads: int = 4):
@@ -227,10 +230,10 @@ class SelfAttention(nn.Module):
         if channels % num_heads:
             raise ValueError(f"{channels} channels do not split into {num_heads} heads")
         self.num_heads = num_heads
-        self.ln = nn.LayerNorm(channels, eps=1e-5)
+        self.ln = TokenLayerNorm(channels, eps=1e-5)
         self.qkv = nn.Linear(channels, 3 * channels)
         self.out = nn.Linear(channels, channels)
-        self.ff_ln = nn.LayerNorm(channels, eps=1e-5)
+        self.ff_ln = TokenLayerNorm(channels, eps=1e-5)
         self.ff1 = nn.Linear(channels, channels)
         self.ff2 = nn.Linear(channels, channels)
 

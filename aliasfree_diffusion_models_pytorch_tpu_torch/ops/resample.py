@@ -218,11 +218,6 @@ def _dense(x: torch.Tensor) -> bool:
     return True
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _pg_launch(x: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
     """Checks and launches one kernel of the plain GELU pair: the forward
     without ``g``, the backward with it, in the form :func:`gelu_form` gives.
@@ -247,7 +242,7 @@ def _pg_launch(x: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
     with torch.cuda.device(x.device):
         err = lib.afdm_plain_gelu(
             x.data_ptr(), None if g is None else g.data_ptr(), y.data_ptr(), x.numel(),
-            FG_GELU_FORMS.index(form), _sm_count(x.device.index),
+            FG_GELU_FORMS.index(form), kernels.sm_count(x.device.index),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"plain_gelu launch failed: {lib.afdm_cuda_error_string(err).decode()}")

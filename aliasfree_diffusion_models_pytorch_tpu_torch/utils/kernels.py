@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import subprocess
@@ -36,7 +37,8 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 # kernel name -> source file in csrc/
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "exp_chain": "exp_chain.cu", "qk_rowsum": "qk_rowsum.cu",
-           "filtered_gelu": "filtered_gelu.cu", "plain_gelu": "plain_gelu.cu"}
+           "filtered_gelu": "filtered_gelu.cu", "plain_gelu": "plain_gelu.cu",
+           "layer_norm": "layer_norm.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -120,6 +122,13 @@ def count_launches(wrapper):
     wrapper.launches = 0
     COUNTED.append(wrapper)
     return wrapper
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, asked once: the launchers size
+    their grids from it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -6,10 +6,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. names the card (``nvidia-smi`` name and power limit, torch's device name);
 2. builds every hand-written kernel from ``csrc/`` with nvcc (sm_90a), all
    sources at once (``flash_fwd``, ``flash_bwd``, ``exp_chain``,
-   ``qk_rowsum``, ``filtered_gelu``, ``plain_gelu``), and prints the build
+   ``qk_rowsum``, ``filtered_gelu``, ``plain_gelu``, ``layer_norm``), and prints the build
    seconds and each kernel's registers and spill bytes from ptxas; every
    attention kernel, bf16 and f32 (every f32 instantiation must be listed),
-   D = 128 included, both GELU pairs and ``qk_rowsum`` must spill nothing; every
+   D = 128 included, both GELU pairs, the LayerNorm pair and ``qk_rowsum`` must
+   spill nothing; every
    ``qk_rowsum`` instantiation must hold ``HGMMA`` and ``UTMALDG`` and no
    ``HMMA`` in its machine code (``cuobjdump -sass``), and start with the
    registers its ``setmaxnreg`` hand-over adds up to;
@@ -62,6 +63,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
    step, and checks its four instantiations spill nothing and the
    filtered-GELU pair's side-32 registers (118 / 125 at degree 15, 114 /
    126 at degree 13) did not move with the shared header ``csrc/gelu.cuh``;
+3d. holds the attention block's LayerNorm pair (``csrc/layer_norm.cu``) at
+   the twelve calls of the bf16 32-px train step at batch 256 (``ln`` on the
+   block's NCHW map read channel-major, ``ff_ln`` on the residual sum in row
+   order) against ``nn.LayerNorm`` (the tokens copied into row order first):
+   y, dx, dw and db within one bf16 unit in the last place and a floor for
+   values that cancel (``tests/test_torch_layer_norm.py``); times the pair
+   per step beside its bound and that composed form, and the twelve forward
+   calls of a sampling forward at n=200; the same in f32 (against float64)
+   at the calls of the examples' step (32 px, batch 64) and of the 128-px
+   step at base width 128 (batch 4, C up to 512); names the composed
+   backward's kernels and GroupNorm's, and counts 12 launches a forward and
+   12 + 12 an eager train step;
 4. runs the full-width Config-D UNet forward (n=16) in f32 on the card
    against the same weights on the CPU (TF32 off), and in bf16, counting 6
    attention launches per forward and the filtered-GELU launches (the conv
@@ -90,17 +103,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
    regimes; then two f32 steps at 32 px: Config A, the JAX CLI's default
    model, at batch 256, and Config D at batch 64): ms per step, images per
    second, kernels per step and device busy share from torch.profiler,
-   attention and filtered-GELU ms per step, peak memory;
+   attention, filtered-GELU and LayerNorm ms per step (12 + 12 LayerNorm
+   launches a step), peak memory;
 7a. (phase 6a) runs ``python3 bench_torch.py`` as a child process on the
    kernels built above and prints its JSON line: it must exit 0 with
    bench.py's keys, finite numbers, the card's name, an MFU in (0, 1] at 32
    px and at 64 px, a step within 15% of phase 6's graphed 32-px bf16 step,
-   and, on its stderr, 6 + 6 attention launches and phase 6's filtered-GELU
-   launches for each of its 30 timed steps;
+   and, on its stderr, 6 + 6 attention launches, phase 6's filtered-GELU
+   launches, 6 + 6 plain-GELU and 12 + 12 LayerNorm launches for each of its
+   30 timed steps;
 7b. (phase 6b) holds the CUDA graphs against ``graphs=False``, in turns in
    one run: DDPM-1000, DDIM-50, a CFG DDIM-20 and a 200-step ``shift`` at
    n=16, 32 px, and the Config-E sampler at 128 px, bit-equal from the same
-   generator with the same launch counts, each one replay's kernels in
+   generator with the same launch counts (12 LayerNorm launches a forward:
+   11,988 in the DDPM-1000 call), each one replay's kernels in
    torch.profiler against what the counters add for it; the four steps of
    phase 6 and the grid's batch-16 step graphed, eager and eager again (ms
    per step, device busy, idle share, peak memory; the graphed run's and
@@ -148,8 +164,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    batch 64, 1000 noise steps; DDPM-1000 and DDIM-50 at n=8 and Config E at
    n=4, then RandomFeatures metrics; CFG DDIM-50 at n=40) from a scratch
    working directory, with its wall time and its launches (240 + 240 in
-   training, 5994 + 300 + 5994 and 300 in the samplers; the filtered GELU's
-   conv form in f32, no pair launch), its epoch losses, artifacts, metric
+   training, 5994 + 300 + 5994 and 300 in the samplers; the LayerNorm
+   pair twice as many in f32; the filtered GELU's conv form in f32, no pair
+   launch), its epoch losses, artifacts, metric
    keys and sample shapes checked;
 11. (phase 9b) runs ``torchrun --nproc-per-node 1 -m
    aliasfree_diffusion_models_pytorch_tpu_torch train`` and ``run`` at a cut
@@ -1856,7 +1873,8 @@ def profile_step(step, state, batch, fg: int, dtype=torch.bfloat16) -> dict:
     events, wall = device_events(lambda: step(state, batch)[1].item(),
                                  {"flash_fwd": 6, "flash_bwd": 6 * BWD_KERNELS[dtype],
                                   "filtered_gelu": 2 * fg})
-    busy = {"total": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0, "filtered_gelu": 0.0}
+    busy = {"total": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0, "filtered_gelu": 0.0,
+            "layer_norm": 0.0}
     by_name: dict[str, list] = {}  # kernel name -> [device us, launches]
     for name, us in events:
         busy["total"] += us
@@ -1866,6 +1884,8 @@ def profile_step(step, state, batch, fg: int, dtype=torch.bfloat16) -> dict:
         for key in ("flash_fwd", "flash_bwd", "filtered_gelu"):
             if key in name:
                 busy[key] += us
+        if any(k in name for k in LN_KERNELS):
+            busy["layer_norm"] += us
     kernels = len(events)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {"profiled_wall_ms": round(wall * 1e3, 3),
@@ -1874,6 +1894,7 @@ def profile_step(step, state, batch, fg: int, dtype=torch.bfloat16) -> dict:
             "flash_fwd_ms": round(busy["flash_fwd"] / 1e3, 4),
             "flash_bwd_ms": round(busy["flash_bwd"] / 1e3, 4),
             "filtered_gelu_ms": round(busy["filtered_gelu"] / 1e3, 4),
+            "layer_norm_ms": round(busy["layer_norm"] / 1e3, 4),
             "top_kernels": [{"name": name[:100], "ms": round(us / 1e3, 3), "launches": count}
                             for name, (us, count) in top]}
 
@@ -1895,11 +1916,14 @@ STEP_CELLS_F32 = [("A", 0, 256, 3, 10), ("D", 3, 64, 3, 10)]
 def time_step(fa, rs, step, state, batch, warm: int, timed: int, dtype) -> tuple:
     """Steady-state ms per step over ``timed`` steps after ``warm`` (a ``.item()``
     closes the timed region), the launch counts, and one profiled step."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.ops import layer_norm as ln
+
     for _ in range(warm):
         state, loss = step(state, batch)
     loss.item()
     fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
     rs.filtered_gelu_fwd.launches = rs.filtered_gelu_bwd.launches = 0
+    ln.layer_norm_fwd.launches = ln.layer_norm_bwd.launches = 0
     t0 = time.perf_counter()
     for _ in range(timed):
         state, loss = step(state, batch)
@@ -1911,6 +1935,8 @@ def time_step(fa, rs, step, state, batch, warm: int, timed: int, dtype) -> tuple
     check(rs.filtered_gelu_fwd.launches == rs.filtered_gelu_bwd.launches == fg * timed,
           f"steps: filtered_gelu launches {rs.filtered_gelu_fwd.launches}, "
           f"{rs.filtered_gelu_bwd.launches}")
+    ln_counts = (ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches)
+    check(ln_counts == (12 * timed, 12 * timed), f"steps: layer_norm launches {ln_counts}")
     check(math.isfinite(final_loss), f"step loss {final_loss}")
     return step_ms, final_loss, fg, profile_step(step, state, batch, fg, dtype)
 
@@ -1972,6 +1998,7 @@ def phase_step_time(fa, rs, config) -> list[dict]:
                 f" ms + flash_bwd {prof['flash_bwd_ms']:.3f} ms ({row['attention_share']:.3f} of "
                 f"the device time), filtered_gelu "
                 f"{prof['filtered_gelu_ms']:.3f} ms ({fg} + {fg} launches) per step, "
+                f"layer_norm {prof['layer_norm_ms']:.3f} ms (12 + 12 launches), "
                 f"{prof['depthwise_conv_kernels']} depthwise conv kernels, "
                 f"peak memory {row['peak_mem_gb']:.2f} GB")
             for k in prof["top_kernels"]:
@@ -2002,7 +2029,8 @@ def phase_bench(step_rows: list[dict]) -> dict:
     would, on the kernels phase 1 built, and check its one line: bench.py's
     keys, finite numbers, the card's name, both MFUs in (0, 1], the step
     within BENCH_STEP_RTOL of phase 6's, and the launches of its timed steps
-    (its stderr) those of 30 graphed steps. Prints the line."""
+    (its stderr) those of 30 graphed steps, the LayerNorm pair's 12 + 12
+    a step among them. Prints the line."""
     import re
 
     _free_device_memory()
@@ -2041,9 +2069,10 @@ def phase_bench(step_rows: list[dict]) -> dict:
     check(launches.get("flash_attention_fwd") == 6 * n
           and launches.get("flash_attention_bwd") == 6 * n
           and launches.get("filtered_gelu_fwd") == launches.get("filtered_gelu_bwd") == fg > 0
-          and launches.get("plain_gelu_fwd") == launches.get("plain_gelu_bwd") == 6 * n,
-          f"bench launches {launches}: expected {6 * n} attention, {fg} filtered-GELU and "
-          f"{6 * n} plain-GELU launches each way")
+          and launches.get("plain_gelu_fwd") == launches.get("plain_gelu_bwd") == 6 * n
+          and launches.get("layer_norm_fwd") == launches.get("layer_norm_bwd") == 12 * n,
+          f"bench launches {launches}: expected {6 * n} attention, {fg} filtered-GELU, "
+          f"{6 * n} plain-GELU and {12 * n} LayerNorm launches each way")
     log(f"  bench: {res['value']} imgs/s/chip, step {res['step_ms']} ms (phase 6: "
         f"{ref['step_ms']:.2f} ms), mfu {res['mfu']}, train64 {res['train64_step_ms']} ms "
         f"(mfu {res['train64_mfu']}), DDPM-1000 {res['sample_1000step_n16_wall_s']} s, DDIM-50 "
@@ -2141,10 +2170,11 @@ def phase_graphs(fa, rs, weights, unet_mod, config, fg: int) -> dict:
 
     from aliasfree_diffusion_models_pytorch_tpu_torch import diffusion as diffusion_mod
     from aliasfree_diffusion_models_pytorch_tpu_torch import train as train_mod
+    from aliasfree_diffusion_models_pytorch_tpu_torch.ops import layer_norm as ln
 
     Diffusion = diffusion_mod.Diffusion
     counters = (fa.flash_attention_fwd, fa.flash_attention_bwd, rs.filtered_gelu_fwd,
-                rs.filtered_gelu_bwd)
+                rs.filtered_gelu_bwd, ln.layer_norm_fwd, ln.layer_norm_bwd)
     results: dict = {"sampling": [], "train": []}
 
     for name, px, width, classes, steps, n, call, forwards in GRAPH_SAMPLERS:
@@ -2169,10 +2199,12 @@ def phase_graphs(fa, rs, weights, unet_mod, config, fg: int) -> dict:
             outs[mode] = call(d, model, gen.manual_seed(1))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = (fa.flash_attention_fwd.launches, rs.filtered_gelu_fwd.launches)
-            check(counts == (6 * forwards, fg * forwards),
-                  f"{name} {mode}: launches (flash_fwd, filtered_gelu) {counts}, expected "
-                  f"{(6 * forwards, fg * forwards)}")
+            counts = (fa.flash_attention_fwd.launches, rs.filtered_gelu_fwd.launches,
+                      ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches)
+            # DDPM-1000: 999 forwards, 11,988 LayerNorm launches
+            check(counts == (6 * forwards, fg * forwards, 12 * forwards, 0),
+                  f"{name} {mode}: launches (flash_fwd, filtered_gelu, layer_norm fwd, bwd) "
+                  f"{counts}, expected {(6 * forwards, fg * forwards, 12 * forwards, 0)}")
             row[f"{mode}_s"] = wall
             row[f"{mode}_ms_per_step"] = wall / forwards * 1e3
             row["launches"] = counts
@@ -2193,8 +2225,10 @@ def phase_graphs(fa, rs, weights, unet_mod, config, fg: int) -> dict:
         before = [c.launches for c in counters]
         replay()
         per_replay = [c.launches - b for c, b in zip(counters, before)]
-        check(per_replay == [6, 0, fg, 0], f"{name}: counters add {per_replay} for a replay")
-        events, _ = device_events(replay, {"flash_fwd": 6, "filtered_gelu": fg})
+        check(per_replay == [6, 0, fg, 0, 12, 0],
+              f"{name}: counters add {per_replay} for a replay")
+        events, _ = device_events(replay, {"flash_fwd": 6, "filtered_gelu": fg,
+                                           "ln_fwd_kernel": 12})
         row["replay_device_ms"] = sum(us for _, us in events) / 1e3
         row["replay_kernels"] = len(events)
         row["replay_counted"] = per_replay
@@ -2244,8 +2278,8 @@ def phase_graphs(fa, rs, weights, unet_mod, config, fg: int) -> dict:
             final_loss = loss.item()
             step_ms = (time.perf_counter() - t0) / timed * 1e3
             counts = [c.launches for c in counters]
-            check(counts == [6 * timed, 6 * timed, fg * timed, fg * timed],
-                  f"{px}px {mode} steps: launches {counts}")
+            check(counts == [6 * timed, 6 * timed, fg * timed, fg * timed, 12 * timed,
+                             12 * timed], f"{px}px {mode} steps: launches {counts}")
             check(math.isfinite(final_loss), f"{px}px {mode}: loss {final_loss}")
             params[mode] = {k: v.clone() for k, v in state.params.items()}
             entry = dict(step_ms=step_ms,
@@ -2575,6 +2609,231 @@ def phase_plain_gelu(rs, unet_mod, blocks, ptxas) -> dict:
     return dict(rows=rows, per_step=step, ptxas=regs, fg_side32_registers=side32)
 
 
+# Phase 2h: the attention block's LayerNorm pair (csrc/layer_norm.cu) at the
+# twelve calls of one bf16 32-px train step at batch 256 (forward hooks on the
+# model's TokenLayerNorms: each block's ln on its NCHW map read channel-major,
+# its ff_ln on the residual sum in row order) and the twelve forward calls of
+# a sampling forward at n=200, and in f32 the calls of the examples' step (32
+# px, batch 64) and of the 128-px step at base width 128 (batch 4: C = 512 at
+# sa2 and sa3), against the form the port ran before: the tokens copied into
+# row order and nn.LayerNorm (F.layer_norm, autograd's backward). The least
+# work of a call: x read once and y written once forward (2 elements' bytes),
+# x and dy read and dx written backward (3); about 8 and 16 f32 instructions
+# an element. Each result is held as in tests/test_torch_layer_norm.py: bf16
+# within one unit in the last place of nn.LayerNorm's and a floor for values
+# that cancel, 2^-16 of the magnitude of their terms; f32 against the float64
+# computation within 2^-18 (y, dx) and 2^-20 (dw, db) of those magnitudes.
+LN_OPS = {False: 8, True: 16}
+LN_FLOORS = {torch.bfloat16: (2.0**-16, 2.0**-16), torch.float32: (2.0**-18, 2.0**-20)}
+LN_EPS = 1e-5
+# the pair's kernels, as their names show in a trace
+LN_KERNELS = ("ln_fwd_kernel", "ln_bwd_kernel", "ln_dparams_kernel")
+
+
+def ln_times(numel: int, backward: bool, dtype=torch.bfloat16) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one LayerNorm call."""
+    nbytes = (3 if backward else 2) * numel * torch.finfo(dtype).bits // 8
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * numel * LN_OPS[backward] / FMA_PER_S
+
+
+def ln_calls(unet_mod, config) -> dict:
+    """{(shape, strides): calls} of the TokenLayerNorms in one forward of the
+    UNet of ``config`` on the card."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.ops.layer_norm import TokenLayerNorm
+
+    model = unet_mod.build_model(config, device="cuda")
+    calls: dict = {}
+
+    def hook(mod, inp, out):
+        key = (tuple(inp[0].shape), inp[0].stride())
+        calls[key] = calls.get(key, 0) + 1
+
+    for m in model.modules():
+        if isinstance(m, TokenLayerNorm):
+            m.register_forward_hook(hook)
+    with torch.no_grad():
+        n = config.batch_size
+        model(torch.zeros((n, config.image_size, config.image_size, 3), device="cuda"),
+              torch.ones((n,), dtype=torch.long, device="cuda"))
+    del model
+    torch.cuda.empty_cache()
+    return calls
+
+
+def ln_units(got, ref, x, w, b, dy) -> list[float]:
+    """Each of y, dx, dw, db's largest |got − ref| in units of its bound: in
+    bf16 one ulp of ref, plus LN_FLOORS of the magnitude of its terms, m =
+    (1/σ)·(|x| + |mean|) in place of |x̂|."""
+    xd, wd, bd, dyd = (t.double() for t in (x, w, b, dy))
+    mean = xd.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((xd - mean) ** 2).mean(-1, keepdim=True) + LN_EPS)
+    m = rstd * (xd.abs() + mean.abs())
+    g = (wd * dyd).abs()
+    c = x.shape[-1]
+    scales = (wd.abs() * m + bd.abs(),
+              rstd * (g + (m * (g * m).sum(-1, keepdim=True) + g.sum(-1, keepdim=True)) / c),
+              (dyd.abs() * m).reshape(-1, c).sum(0), dyd.abs().reshape(-1, c).sum(0))
+    units = []
+    for i, (a, r, sc) in enumerate(zip(got, ref, scales)):
+        rd = r.double()
+        ulp = torch.where(rd != 0, torch.exp2(torch.floor(torch.log2(rd.abs().clamp_min(1e-38)))
+                                              - 7), 0.0) if x.dtype == torch.bfloat16 else 0.0
+        floor = LN_FLOORS[x.dtype][i >= 2]
+        units.append(((a.double() - rd).abs() / (ulp + floor * sc)).max().item())
+    return units
+
+
+def phase_layer_norm(unet_mod, ptxas) -> dict:
+    """The LayerNorm pair at the bf16 train step's and sampler's shapes and at
+    the f32 steps' of the examples and of 128 px: held against nn.LayerNorm
+    (f32: float64), timed beside the composed form and the bound, summed per
+    step; the composed backward's kernels and GroupNorm's, named in full;
+    the launches of a forward and of an eager train step; the pair's
+    registers and spills."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from aliasfree_diffusion_models_pytorch_tpu_torch import train as train_mod
+    from aliasfree_diffusion_models_pytorch_tpu_torch.config import FilterSettings, TrainConfig
+    from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
+    from aliasfree_diffusion_models_pytorch_tpu_torch.ops import layer_norm as ln
+
+    config = TrainConfig(image_size=32, image_channels=3, variant=3, batch_size=256,
+                         compute_dtype="bfloat16", filters=FilterSettings())
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows, composed_kernels = [], {}
+    max_units = {"bfloat16": [0.0] * 4, "float32": [0.0] * 4}
+    f32 = dict(compute_dtype="float32")
+    regimes = {"step": (config, True),
+               "sampling": (dataclasses.replace(config, batch_size=200), False),
+               "f32_examples_b64": (dataclasses.replace(config, batch_size=64, **f32), True),
+               "f32_128px_w128_b4": (dataclasses.replace(config, image_size=128, base_width=128,
+                                                         batch_size=4, **f32), True)}
+    per = {}
+    for regime, (cfg, backward) in regimes.items():
+        dtype = getattr(torch, cfg.compute_dtype)
+        calls = ln_calls(unet_mod, cfg)
+        check(sum(calls.values()) == 12, f"{regime}: {sum(calls.values())} LayerNorm calls a "
+                                         f"forward, expected 12")
+        for (shape, stride), n_calls in calls.items():
+            n, s, c = shape
+            x = torch.empty_strided(shape, stride, device="cuda", dtype=dtype)
+            x.copy_(torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.3)
+            w = (1 + 0.5 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+            b = (0.5 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            layout = ln.token_layout(x)
+            y, mean, rstd = ln.layer_norm_fwd(x, w, b, LN_EPS)
+            dx, dw, db = ln.layer_norm_bwd(x, dy, w, mean, rstd)
+            xg = x.detach().requires_grad_()
+            wg, bg = w.clone().requires_grad_(), b.clone().requires_grad_()
+            ref = F.layer_norm(xg, (c,), wg, bg, LN_EPS)  # the composed form, timed below
+            if dtype == torch.bfloat16:
+                want = (ref.detach(), *torch.autograd.grad(ref, (xg, wg, bg), dy,
+                                                           retain_graph=True))
+            else:
+                xd, wd, bd = (t.detach().double().requires_grad_() for t in (x, w, b))
+                rd = F.layer_norm(xd, (c,), wd, bd, LN_EPS)
+                want = tuple(t.float() for t in (rd.detach(), *torch.autograd.grad(
+                    rd, (xd, wd, bd), dy.double())))
+                del xd, wd, bd, rd
+            units = ln_units((y, dx, dw, db), want, x, w, b, dy)
+            check(max(units) <= 1.0 and dx.stride() == x.stride(),
+                  f"layer_norm {regime} {shape} {stride}: errors {units} units of the bound, dx "
+                  f"strides {dx.stride()}")
+            worst = max_units[cfg.compute_dtype]
+            max_units[cfg.compute_dtype] = [max(a, u) for a, u in zip(worst, units)]
+            row = dict(regime=regime, dtype=cfg.compute_dtype, shape=list(shape),
+                       strides=list(stride), layout=layout, calls=n_calls, units=units,
+                       fwd_ms=device_ms(lambda: ln.layer_norm_fwd(x, w, b, LN_EPS), iters=10,
+                                        per_call={"ln_fwd_kernel": 1}),
+                       composed_fwd_ms=device_ms(lambda: F.layer_norm(x, (c,), w, b, LN_EPS),
+                                                 iters=10))
+            row["fwd_bound_ms"], _ = bound([ln_times(x.numel(), False, dtype)])
+            if backward:
+                row["bwd_ms"] = device_ms(lambda: ln.layer_norm_bwd(x, dy, w, mean, rstd),
+                                          iters=10, per_call={"ln_bwd_kernel": 1,
+                                                              "ln_dparams_kernel": 1})
+                row["composed_bwd_ms"] = device_ms(
+                    lambda: torch.autograd.grad(ref, (xg, wg, bg), dy, retain_graph=True),
+                    iters=10)
+                row["bwd_bound_ms"], _ = bound([ln_times(x.numel(), True, dtype)])
+                if dtype == torch.bfloat16 and layout not in composed_kernels:
+                    events, _ = device_events(
+                        lambda: torch.autograd.grad(ref, (xg, wg, bg), dy, retain_graph=True))
+                    composed_kernels[layout] = sorted({name for name, _ in events})
+            rows.append(row)
+            log(f"  {regime:<8} {str(shape):<19} {layout:<8} x{n_calls}: device us fwd "
+                f"{row['fwd_ms'] * 1e3:7.1f} (bound {row['fwd_bound_ms'] * 1e3:6.1f}, composed "
+                f"{row['composed_fwd_ms'] * 1e3:7.1f})"
+                + (f" bwd {row['bwd_ms'] * 1e3:7.1f} (bound {row['bwd_bound_ms'] * 1e3:6.1f}, "
+                   f"composed {row['composed_bwd_ms'] * 1e3:7.1f})" if backward else "")
+                + f"; units of the bound y/dx/dw/db {[round(u, 3) for u in units]}")
+            del x, w, b, dy, y, mean, rstd, dx, dw, db, xg, wg, bg, ref, want
+        keys = ("fwd_ms", "composed_fwd_ms") + (("bwd_ms", "composed_bwd_ms") if backward else ())
+        mine = [r for r in rows if r["regime"] == regime]
+        per[regime] = {k: sum(r["calls"] * r[k] for r in mine) for k in keys}
+        times = [ln_times(math.prod(r["shape"]), bwd, dtype) for r in mine
+                 for bwd in ((False, True) if backward else (False,)) for _ in range(r["calls"])]
+        per[regime]["bound_ms"], per[regime]["bound_by"] = bound(times)
+        per[regime]["elements"] = sum(r["calls"] * math.prod(r["shape"]) for r in mine)
+    step, sampling = per["step"], per["sampling"]
+    log(f"  per 32-px train step at batch 256 (12 calls each way, {step['elements']} elements): "
+        f"kernel {step['fwd_ms'] + step['bwd_ms']:.4f} ms ({step['fwd_ms']:.4f} + "
+        f"{step['bwd_ms']:.4f}), bound {step['bound_ms']:.4f} ({step['bound_by']}), composed "
+        f"{step['composed_fwd_ms'] + step['composed_bwd_ms']:.4f} "
+        f"({step['composed_fwd_ms']:.4f} + {step['composed_bwd_ms']:.4f})")
+    log(f"  per sampling forward at n=200 (12 calls): kernel {sampling['fwd_ms']:.4f} ms, bound "
+        f"{sampling['bound_ms']:.4f}, composed {sampling['composed_fwd_ms']:.4f}")
+    f32_steps = {k: v for k, v in per.items() if k.startswith("f32_")}
+    for regime, t in f32_steps.items():
+        log(f"  per f32 step, {regime} (12 calls each way, {t['elements']} elements): kernel "
+            f"{t['fwd_ms'] + t['bwd_ms']:.4f} ms ({t['fwd_ms']:.4f} + {t['bwd_ms']:.4f}), bound "
+            f"{t['bound_ms']:.4f} ({t['bound_by']}), composed "
+            f"{t['composed_fwd_ms'] + t['composed_bwd_ms']:.4f} ({t['composed_fwd_ms']:.4f} + "
+            f"{t['composed_bwd_ms']:.4f})")
+    for layout, names in composed_kernels.items():
+        log(f"  composed backward's kernels ({layout}): {names}")
+    gn = torch.nn.GroupNorm(1, 64).cuda().bfloat16()
+    gx = torch.randn((256, 64, 32, 32), device="cuda").bfloat16().requires_grad_()
+    gy = gn(gx)
+    events, _ = device_events(lambda: torch.autograd.grad(gy, (gx, *gn.parameters()),
+                                                          torch.ones_like(gy), retain_graph=True))
+    composed_kernels["group_norm_backward"] = sorted({name for name, _ in events})
+    log(f"  GroupNorm(1, 64) backward's kernels: {composed_kernels['group_norm_backward']}")
+    del gn, gx, gy
+    # launches: a forward, and one eager train step, of the bf16 32-px model at batch 4
+    small = dataclasses.replace(config, batch_size=4, noise_steps=50)
+    model, state = train_mod.create_train_state(small, device="cuda")
+    counts = lambda: (ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches)  # noqa: E731
+    before = counts()
+    with torch.no_grad():
+        model(torch.zeros((4, 32, 32, 3), device="cuda"),
+              torch.ones((4,), dtype=torch.long, device="cuda"))
+    fwd_launches = tuple(a - b for a, b in zip(counts(), before))
+    step_fn = train_mod.make_train_step(model, small, Diffusion(noise_steps=50, img_size=32,
+                                                                device="cuda"), graphs=False)
+    before = counts()
+    state, loss = step_fn(state, torch.rand((4, 32, 32, 3), device="cuda") * 2 - 1,
+                          train_mod.step_generator(torch.Generator(device="cuda"), 0, 0))
+    torch.cuda.synchronize()
+    step_launches = tuple(a - b for a, b in zip(counts(), before))
+    check(fwd_launches == (12, 0) and step_launches == (12, 12) and math.isfinite(loss.item()),
+          f"LayerNorm launches: a forward {fwd_launches}, a train step {step_launches}")
+    log(f"  launches: a forward {fwd_launches}, an eager train step {step_launches}")
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+    regs = [e for e in ptxas if e["library"] == "layer_norm"]
+    check(len(regs) == 12 and not any(e["spill_stores"] + e["spill_loads"] for e in regs),
+          f"layer_norm: instantiations missing or spilling: {regs}")
+    log("  layer_norm registers: " + ", ".join(f"{e['kernel']} {e['registers']}" for e in regs))
+    return dict(rows=rows, per_step=step, sampling=sampling, f32_steps=f32_steps,
+                max_units=max_units,
+                composed_kernels=composed_kernels, ptxas=regs,
+                launches={"forward": fwd_launches, "train_step": step_launches})
+
+
 # Phase 6c: the step on a one-rank NCCL mesh (torch.distributed with this
 # process as rank 0 of 1), graphed: the 32-px Config-D bf16 step at batch 256
 # on a data mesh and on an fsdp mesh of size 1, in turns with the
@@ -2766,8 +3025,9 @@ def phase_distributed(fa, rs, cli, config) -> dict:
 # 32 px, f32, 5 epochs of 512 synthetic images at batch 64 = 40 steps, 1000
 # noise steps). Attention launches: 6 a forward and 6 a backward a step, 6 a
 # sampler step (999 for DDPM-1000, 50 for DDIM-50; CFG doubles the batch, not
-# the forwards). The filtered GELU takes the conv form in f32 (as the JAX
-# package's f32 path does): the pair launches nothing here.
+# the forwards). The LayerNorm pair launches twice as often (ln and ff_ln).
+# The filtered GELU takes the conv form in f32 (as the JAX package's f32 path
+# does): the pair launches nothing here.
 EXAMPLES = {
     "quickstart": dict(fwd=6 * 40 + 6 * 999 + 6 * 50 + 6 * 999, bwd=6 * 40),
     "conditional_cfg": dict(fwd=6 * 40 + 6 * 50, bwd=6 * 40),
@@ -2790,8 +3050,11 @@ def load_example(name: str):
 
 def phase_examples(fa, rs) -> list[dict]:
     """Each port example's ``main`` in this process, with a scratch working
-    directory, every launch counter set to 0 just before and read just after."""
+    directory, every launch counter set to 0 just before and read just after:
+    in f32, two LayerNorm launches for each attention launch."""
     import shutil
+
+    from aliasfree_diffusion_models_pytorch_tpu_torch.ops import layer_norm as ln
 
     work = os.path.abspath(os.path.join(OUT_DIR, "examples"))
     shutil.rmtree(work, ignore_errors=True)
@@ -2824,6 +3087,7 @@ def phase_examples(fa, rs) -> list[dict]:
         torch.cuda.synchronize()
         fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
         rs.filtered_gelu_fwd.launches = rs.filtered_gelu_bwd.launches = 0
+        ln.layer_norm_fwd.launches = ln.layer_norm_bwd.launches = 0
         t0 = time.perf_counter()
         try:
             result = module.main(argvs[name])
@@ -2837,6 +3101,10 @@ def phase_examples(fa, rs) -> list[dict]:
               f"{name}: attention launches (fwd, bwd) {counts}, expected "
               f"{(expect['fwd'], expect['bwd'])}")
         check(fg_counts == (0, 0), f"{name}: filtered_gelu launches {fg_counts} in f32")
+        ln_counts = (ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches)
+        check(ln_counts == (2 * expect["fwd"], 2 * expect["bwd"]),
+              f"{name}: layer_norm launches {ln_counts} in f32, expected "
+              f"{(2 * expect['fwd'], 2 * expect['bwd'])}")
         losses = result["losses"]
         check(len(losses) == 5 and all(math.isfinite(x) for x in losses),
               f"{name}: epoch losses {losses}")
@@ -2845,7 +3113,8 @@ def phase_examples(fa, rs) -> list[dict]:
         check(os.path.exists(grid), f"{name}: no grid at {grid}")
         row = dict(run=f"example_{name}", wall_s=wall, stage_s=stage_s, fwd_launches=counts[0],
                    bwd_launches=counts[1], fg_fwd_launches=fg_counts[0],
-                   fg_bwd_launches=fg_counts[1], epoch_losses=losses)
+                   fg_bwd_launches=fg_counts[1], ln_fwd_launches=ln_counts[0],
+                   ln_bwd_launches=ln_counts[1], epoch_losses=losses)
         if name == "quickstart":
             shapes = {k: (v.shape, str(v.dtype)) for k, v in result["samples"].items()}
             check(shapes == {"final": ((8, 32, 32, 1), "uint8"), "fast": ((8, 32, 32, 1), "uint8"),
@@ -2863,7 +3132,8 @@ def phase_examples(fa, rs) -> list[dict]:
         stages = ", ".join(f"{k} {v:.2f} s" for k, v in stage_s.items())
         log(f"  {name}: {wall:.2f} s wall ({stages}), epoch mean losses "
             f"{[round(x, 4) for x in losses]}, launches attention {counts[0]} + {counts[1]}, "
-            f"filtered_gelu {fg_counts[0]} + {fg_counts[1]}"
+            f"filtered_gelu {fg_counts[0]} + {fg_counts[1]}, layer_norm {ln_counts[0]} + "
+            f"{ln_counts[1]}"
             + (f", metrics {row['metrics']}" if "metrics" in row else ""))
         rows.append(row)
     return rows
@@ -2970,9 +3240,9 @@ def main() -> int:
     # Every attention kernel, bf16 and f32, and the filtered-GELU pair keep
     # every value in registers; the report holds every f32 instantiation.
     spilled = [e["kernel"] for e in ptxas if e["spill_stores"] + e["spill_loads"] and (
-        e["library"] in ("filtered_gelu", "plain_gelu", "qk_rowsum")
+        e["library"] in ("filtered_gelu", "plain_gelu", "layer_norm", "qk_rowsum")
         or e["library"].startswith("flash_"))]
-    check(not spilled, f"attention, GELU or qk_rowsum kernels spill: {spilled}")
+    check(not spilled, f"attention, GELU, LayerNorm or qk_rowsum kernels spill: {spilled}")
     # qk_rowsum runs on wgmma and TMA in every instantiation, with no mma.sync left
     qk_sass = sass_report(kernels.library_path("qk_rowsum"))
     for label, ops in qk_sass.items():
@@ -3027,6 +3297,9 @@ def main() -> int:
     log("[2g] plain GELU pair vs the composed form at Config A's step shapes")
     pgres = phase_plain_gelu(rs, unet_mod, blocks, ptxas)
     done("plain_gelu kernels")
+    log("[2h] LayerNorm pair vs nn.LayerNorm at the attention blocks' step and sampling shapes")
+    lnres = phase_layer_norm(unet_mod, ptxas)
+    done("layer_norm kernels")
     log("[3] full-width Config-D UNet forward and sampler, card vs cpu")
     fg = phase_unet(fa, rs, weights, unet_mod, config)
     done("unet card vs cpu")
@@ -3266,6 +3539,40 @@ def main() -> int:
         "ptxas": pgres["ptxas"],
         "fg_side32_registers": pgres["fg_side32_registers"],
         "shapes": pgres["rows"],
+    }, {
+        "name": "layer_norm",
+        "route": "cuda",
+        "source": "aliasfree_diffusion_models_pytorch_tpu_torch/csrc/layer_norm.cu",
+        "replaces": "flax nn.LayerNorm of the JAX package's attention block (XLA-fused)",
+        # times: the twelve calls of one bf16 32-px train step at batch 256,
+        # forward and backward; the yardstick is the form the port ran before:
+        # the tokens view copied into row order, nn.LayerNorm and its backward
+        "ms": lnres["per_step"]["fwd_ms"] + lnres["per_step"]["bwd_ms"],
+        "plain_ms": None,
+        "bound_ms": lnres["per_step"]["bound_ms"],
+        "bound_by": lnres["per_step"]["bound_by"],
+        "library_ms": lnres["per_step"]["composed_fwd_ms"] + lnres["per_step"]["composed_bwd_ms"],
+        "library_call": "x.contiguous() of the tokens view, F.layer_norm, autograd backward",
+        "max_units_of_bound": lnres["max_units"],
+        "kernels_per_launch": {"fwd": 1, "bwd": 2},
+        "ptxas": lnres["ptxas"],
+        "per_step": lnres["per_step"],
+        "sampling_n200": lnres["sampling"],
+        # phase 2h's f32 calls: the examples' step and the 128-px step at base width 128
+        "f32_steps": lnres["f32_steps"],
+        # the main path's counts: bench_torch.py's 30 graphed steps at batch 256
+        # (phase 6a) and a graphed DDPM-1000 call at n=16 (phase 6b); then
+        # phase 2h's eager forward and step at batch 4
+        "launches": {
+            "bench_30_graphed_steps": {k: bench_res["timed_launches"][k]
+                                       for k in ("layer_norm_fwd", "layer_norm_bwd")},
+            "graphed_ddpm1000_n16": dict(zip(
+                ("layer_norm_fwd", "layer_norm_bwd"),
+                next(r for r in graph_res["sampling"] if r["name"] == "ddpm1000"
+                     )["launches"][2:])),
+            "eager_b4": lnres["launches"]},
+        "composed_kernels": lnres["composed_kernels"],
+        "shapes": lnres["rows"],
     }], "bench": bench_res,
         "graphs": graph_res,
         "distributed": dist_res,

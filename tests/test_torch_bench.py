@@ -159,7 +159,8 @@ def test_cpu_branch_prints_bench_py_keys():
     launches = json.loads(re.search(r"launches (\{[^}]*\})", proc.stderr).group(1))
     assert launches == {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
                         "filtered_gelu_fwd": 0, "filtered_gelu_bwd": 0,
-                        "plain_gelu_fwd": 0, "plain_gelu_bwd": 0}
+                        "plain_gelu_fwd": 0, "plain_gelu_bwd": 0,
+                        "layer_norm_fwd": 0, "layer_norm_bwd": 0}
     assert "impl.fg_impl_perf: phases | impl.fg_impl_parity: conv" in proc.stderr
 
 

@@ -118,7 +118,7 @@ def test_every_kernel_source_is_registered_and_present():
     from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
 
     assert set(kernels.SOURCES) == {"flash_fwd", "flash_bwd", "exp_chain", "qk_rowsum",
-                                    "filtered_gelu", "plain_gelu"}
+                                    "filtered_gelu", "plain_gelu", "layer_norm"}
     on_disk = {p.name for p in kernels.CSRC.glob("*.cu")}
     assert on_disk == set(kernels.SOURCES.values())
     for name, source in kernels.SOURCES.items():
