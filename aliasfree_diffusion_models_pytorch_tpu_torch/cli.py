@@ -429,13 +429,14 @@ def info_text() -> str:
     visible device with its memory, and the default mesh of this process
     (``parallel.make_mesh()``: every rank on the ``data`` axis)."""
     from aliasfree_diffusion_models_pytorch_tpu_torch.parallel import make_mesh, world
+    from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
 
     lines = [f"torch: {torch.__version__}  cuda: {torch.version.cuda}  "
              f"available: {torch.cuda.is_available()}  devices: {torch.cuda.device_count()}"]
     for i in range(torch.cuda.device_count()):
         props = torch.cuda.get_device_properties(i)
         lines.append(f"  cuda:{i} {props.name}  {props.total_memory / 2**30:.1f} GiB  "
-                     f"sm_{props.major}{props.minor}  {props.multi_processor_count} SMs")
+                     f"sm_{props.major}{props.minor}  {kernels.sm_count(i)} SMs")
     lines.append(f"default mesh: shape={make_mesh(ranks=range(world()[1])).shape}")
     return "\n".join(lines)
 

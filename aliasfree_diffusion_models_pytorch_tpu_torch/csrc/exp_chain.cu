@@ -25,6 +25,8 @@
 
 #include <cuda_runtime.h>
 
+#include "entry.cuh"
+
 namespace {
 
 enum Op {
@@ -147,19 +149,15 @@ cudaError_t dispatch_chain(const float* x, float* out, long long n, int chain, b
 }  // namespace
 
 // x, out: n contiguous f32 values on the current device, both 16-byte aligned, not
-// overlapping. op: the index of the op in ops/probes.py:OPS.
+// overlapping. op: the index of the op in ops/probes.py:OPS. sms: the card's SM count (the grid
+// is at most kBlocksPerSm blocks an SM).
 // Returns a cudaError_t (0 = launched).
 extern "C" int afdm_exp_chain(const void* x, void* out, long long n, int op, int chain,
-                              int subtract, void* stream) {
-  if (n < 1 || chain < 0 || op < 0 || op >= kNumOps) return cudaErrorInvalidValue;
+                              int subtract, int sms, void* stream) {
+  if (n < 1 || chain < 0 || op < 0 || op >= kNumOps || sms < 1) return cudaErrorInvalidValue;
   if ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(out)) % 16 != 0) {
     return cudaErrorMisalignedAddress;
   }
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
   const float* xi = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -177,8 +175,4 @@ extern "C" int afdm_exp_chain(const void* x, void* out, long long n, int op, int
     case kLogistic: return dispatch_chain<kLogistic>(xi, o, n, chain, sub, sms, st);
     default: return dispatch_chain<kExpFast>(xi, o, n, chain, sub, sms, st);
   }
-}
-
-extern "C" const char* afdm_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -54,6 +54,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "entry.cuh"
 #include "gelu.cuh"
 
 namespace {
@@ -616,8 +617,4 @@ extern "C" int afdm_filtered_gelu(const void* x, const void* g, const void* up, 
     err = dispatch<bf16, kGeluErf>(k, side, cols, x, g, up, down, y, geo, blocks, st);
   }
   return static_cast<int>(err);
-}
-
-extern "C" const char* afdm_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -81,6 +81,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "entry.cuh"
 #include "attn_f32.cuh"
 #include "mma_bf16.cuh"
 
@@ -1074,8 +1075,4 @@ extern "C" int afdm_flash_bwd(const void* q, const void* k, const void* v, const
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
-}
-
-extern "C" const char* afdm_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -58,6 +58,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "entry.cuh"
 #include "attn_f32.cuh"
 #include "mma_bf16.cuh"
 
@@ -78,14 +79,15 @@ template <> struct FwdTile<16> { static constexpr int kRI = 4, kCJ = 8; };
 template <> struct FwdTile<32> { static constexpr int kRI = 4, kCJ = 8; };
 template <> struct FwdTile<64> { static constexpr int kRI = 4, kCJ = 8; };
 template <> struct FwdTile<128> { static constexpr int kRI = 4, kCJ = 4; };
-// ... and at D <= 16 on a small grid (at most kSmallGrid blocks of 64 queries: the sampler's
-// 256-query blocks at n = 32), where three blocks an SM leave the second wave mostly empty:
-// tiles of fewer rows or keys a block. Mirrored by ops/flash_attention.py:F32_FWD_SMALL_TILES.
+// ... and at D <= 16 on a small grid (at most kSmallGridPerSm blocks of 64 queries an SM: the
+// sampler's 256-query blocks at n = 32), where three blocks an SM leave the second wave mostly
+// empty: tiles of fewer rows or keys a block. Mirrored by ops/flash_attention.py:
+// F32_FWD_SMALL_TILES and F32_SMALL_GRID_PER_SM.
 template <int D>
 struct FwdSmallTile;
 template <> struct FwdSmallTile<8> { static constexpr int kRI = 4, kCJ = 4; };
 template <> struct FwdSmallTile<16> { static constexpr int kRI = 2, kCJ = 8; };
-constexpr long long kSmallGrid = 4 * 132;  // four blocks an SM of the H100's 132
+constexpr long long kSmallGridPerSm = 4;
 
 // Dynamic shared memory of flash_fwd_f32_kernel<D, *, RI, CJ>: the query tile, two K and two V
 // tiles, and P staged (D >= 32).
@@ -271,9 +273,10 @@ cudaError_t launch_f32_tile(const void* q, const void* k, const void* v, void* o
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* m,
-                       float* l, int bh, int s, float scale, int heads, cudaStream_t stream) {
+                       float* l, int bh, int s, float scale, int heads, int sms,
+                       cudaStream_t stream) {
   if constexpr (D <= 16) {
-    if (static_cast<long long>(bh) * ((s + 63) / 64) <= kSmallGrid) {
+    if (static_cast<long long>(bh) * ((s + 63) / 64) <= kSmallGridPerSm * sms) {
       return launch_f32_tile<D, FwdSmallTile<D>::kRI, FwdSmallTile<D>::kCJ>(
           q, k, v, out, m, l, bh, s, scale, heads, stream);
     }
@@ -522,12 +525,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, f
 // q, k, v, out: contiguous (bh, s, d) arrays of f32 (is_bf16 = 0) or bf16 (is_bf16 = 1),
 // 16-byte aligned (cp.async). m, l: (bh, s) f32 arrays for the softmax max and sum, or both null.
 // heads_per_block: 1, 2 or 4 (1 at d = 128), from ops/flash_attention.py:fwd_plan (bf16) or
-// f32_plan (f32).
+// f32_plan (f32). sms: the card's SM count (the f32 forward's tile at d <= 16 depends on it).
 // Launches on `stream` and returns the launch's cudaError_t (0 on success).
 extern "C" int afdm_flash_fwd(const void* q, const void* k, const void* v, void* out, void* m,
                               void* l, int bh, int s, int d, float scale, int is_bf16,
-                              int heads_per_block, void* stream) {
-  if (bh < 1 || s < 1 || (m == nullptr) != (l == nullptr)) return cudaErrorInvalidValue;
+                              int heads_per_block, int sms, void* stream) {
+  if (bh < 1 || s < 1 || sms < 1 || (m == nullptr) != (l == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
@@ -535,24 +540,20 @@ extern "C" int afdm_flash_fwd(const void* q, const void* k, const void* v, void*
   switch (d) {
     case 8:
       return is_bf16 ? launch_mma<8>(q, k, v, out, mf, lf, bh, s, scale, hp, st)
-                     : launch_f32<8>(q, k, v, out, mf, lf, bh, s, scale, hp, st);
+                     : launch_f32<8>(q, k, v, out, mf, lf, bh, s, scale, hp, sms, st);
     case 16:
       return is_bf16 ? launch_mma<16>(q, k, v, out, mf, lf, bh, s, scale, hp, st)
-                     : launch_f32<16>(q, k, v, out, mf, lf, bh, s, scale, hp, st);
+                     : launch_f32<16>(q, k, v, out, mf, lf, bh, s, scale, hp, sms, st);
     case 32:
       return is_bf16 ? launch_mma<32>(q, k, v, out, mf, lf, bh, s, scale, hp, st)
-                     : launch_f32<32>(q, k, v, out, mf, lf, bh, s, scale, hp, st);
+                     : launch_f32<32>(q, k, v, out, mf, lf, bh, s, scale, hp, sms, st);
     case 64:
       return is_bf16 ? launch_mma<64>(q, k, v, out, mf, lf, bh, s, scale, hp, st)
-                     : launch_f32<64>(q, k, v, out, mf, lf, bh, s, scale, hp, st);
+                     : launch_f32<64>(q, k, v, out, mf, lf, bh, s, scale, hp, sms, st);
     case 128:
       return is_bf16 ? launch_mma<128>(q, k, v, out, mf, lf, bh, s, scale, hp, st)
-                     : launch_f32<128>(q, k, v, out, mf, lf, bh, s, scale, hp, st);
+                     : launch_f32<128>(q, k, v, out, mf, lf, bh, s, scale, hp, sms, st);
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-extern "C" const char* afdm_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

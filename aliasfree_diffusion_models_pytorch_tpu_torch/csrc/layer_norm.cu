@@ -54,6 +54,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "entry.cuh"
 #include "mma_bf16.cuh"  // cp_async_16 and its waits, raise_smem_limit_once
 
 namespace {
@@ -675,8 +676,4 @@ extern "C" int afdm_layer_norm(const void* x, const void* dy, const void* weight
     }
   }
   return static_cast<int>(err);
-}
-
-extern "C" const char* afdm_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -32,6 +32,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "entry.cuh"
 #include "gelu.cuh"
 
 namespace {
@@ -195,8 +196,4 @@ extern "C" int afdm_plain_gelu(const void* x, const void* g, void* y, long long 
   const cudaError_t err = g == nullptr ? dispatch<false>(gelu, xb, gb, yb, s, sms, st)
                                        : dispatch<true>(gelu, xb, gb, yb, s, sms, st);
   return static_cast<int>(err);
-}
-
-extern "C" const char* afdm_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

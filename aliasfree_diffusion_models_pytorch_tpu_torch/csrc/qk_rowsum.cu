@@ -48,6 +48,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "entry.cuh"
 #include "mma_bf16.cuh"
 #include "sm90.cuh"
 
@@ -62,7 +63,6 @@ constexpr int kBlockQueries = kConsumers * kWarpgroupQueries;
 constexpr int kThreads = 128 * (kConsumers + 1);  // and one producer warpgroup
 constexpr int kKeys = 128;                       // keys a TMA tile: s is a multiple
 constexpr int kAlign = 1024;                     // a swizzled tile's alignment in shared memory
-constexpr int kTensorMapError = 100000;          // + the CUresult of a refused tensor map
 
 // By depth: keys of a wgmma (its N, and the accumulator's columns: a 128-key tile is 128 / N
 // products into the same accumulator), ring stages, TMA swizzle width of a key tile in bytes
@@ -349,7 +349,7 @@ int encode_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
                               dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(res);
+  return res == CUDA_SUCCESS ? 0 : afdm::kTensorMapError + static_cast<int>(res);
 }
 
 template <int D>
@@ -407,8 +407,8 @@ int launch(const void* k, const void* qt, float* out, int n, int s, int keys_per
 // k: (n, s, d) bf16, qt: (n, d, s) bf16, out: (n, 1, s) f32, all contiguous on the current
 // device; k and qt 16-byte aligned (TMA). The plan's integers (keys_per_tile, acc_keys,
 // queries_per_block, stages, swizzle, smem_bytes, grid) come from ops/probes.py:qk_plan and must
-// match this build's and this device's. Returns a cudaError_t, or kTensorMapError + the CUresult
-// where a tensor map was refused.
+// match this build's and this device's. Returns a cudaError_t, or afdm::kTensorMapError (entry.cuh)
+// + the CUresult where a tensor map was refused.
 extern "C" int afdm_qk_rowsum(const void* k, const void* qt, void* out, int n, int s, int d,
                               int keys_per_tile, int acc_keys, int queries_per_block, int stages,
                               int swizzle, int smem_bytes, int grid, void* stream) {
@@ -427,9 +427,4 @@ extern "C" int afdm_qk_rowsum(const void* k, const void* qt, void* out, int n, i
     case 128: return launch<128>(k, qt, o, n, s, kp, ak, qb, ns, sw, sb, gr, st);
     default: return cudaErrorInvalidValue;
   }
-}
-
-extern "C" const char* afdm_cuda_error_string(int err) {
-  if (err >= kTensorMapError) return "cuTensorMapEncodeTiled refused a tensor map";
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

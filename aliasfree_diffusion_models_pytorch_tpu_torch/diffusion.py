@@ -50,7 +50,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from aliasfree_diffusion_models_pytorch_tpu_torch.ops.resample import fg_impl_override, gelu_mode
+from aliasfree_diffusion_models_pytorch_tpu_torch.ops.resample import capture_key
 from aliasfree_diffusion_models_pytorch_tpu_torch.ops.rotation import (
     GatherRotation,
     apply_pixel_operator,
@@ -256,7 +256,7 @@ class Diffusion:
                None if param is None else param.dtype, labels is not None, cfg_scale,
                None if rot is None else tuple(None if f is None else (tuple(f.shape), f.dtype)
                                                for f in _fields(rot)),
-               noise_fn is not None, fg_impl_override(), gelu_mode(), self.graphs)
+               noise_fn is not None, capture_key(), self.graphs)
         per_model = _SAMPLERS.setdefault(model, {})
         sampler = per_model.get(key)
         if sampler is None:

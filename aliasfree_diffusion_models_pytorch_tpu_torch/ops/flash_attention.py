@@ -38,14 +38,13 @@ device memory:
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 import math
 
 import torch
 
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
+from aliasfree_diffusion_models_pytorch_tpu_torch.utils.kernels import F32, INT, PTR
 
 __all__ = ["attention_reference", "attention_backward_reference", "flash_attention_fwd",
            "flash_attention_bwd", "flash_mha", "fwd_plan", "f32_plan", "bwd_scratch_shapes",
@@ -60,6 +59,12 @@ WARPS = 4
 ROWS_PER_WARP = 16
 BWD_KEY_BLOCK = WARPS * ROWS_PER_WARP  # keys per block of the backward
 ALIGN = 16  # bytes: cp.async copies 16-byte rows
+
+# The C entry points (csrc/flash_fwd.cu, csrc/flash_bwd.cu), each argument before the stream.
+# flash_fwd: q, k, v, out, m, l; bh, s, d, scale, is_bf16, heads_per_block, sms.
+_FWD = kernels.Entry("flash_fwd", [PTR] * 6 + [INT] * 3 + [F32, INT, INT, INT])
+# flash_bwd: q, k, v, out, g, m, l, dq, dk, dv, consts, dq_acc, g_scaled; bh, s, d, scale, is_bf16.
+_BWD = kernels.Entry("flash_bwd", [PTR] * 13 + [INT] * 3 + [F32, INT])
 
 
 def _default_scale(q: torch.Tensor, scale) -> float:
@@ -163,11 +168,11 @@ F32_TILES = {
     "bwd_dq": {32: (4, 8), 64: (4, 8), 128: (2, 4)},
     "bwd_dkv": {32: (4, 8), 64: (2, 8), 128: (2, 4)},
 }
-# The forward at D <= 16 on a small grid: at most F32_SMALL_GRID blocks of 64
-# queries (four an SM of an H100's 132) take these tiles (csrc/flash_fwd.cu:
-# FwdSmallTile, kSmallGrid).
+# The forward at D <= 16 on a small grid: at most F32_SMALL_GRID_PER_SM blocks
+# of 64 queries an SM of the card take these tiles (csrc/flash_fwd.cu:
+# FwdSmallTile, kSmallGridPerSm).
 F32_FWD_SMALL_TILES = {8: (4, 4), 16: (2, 8)}
-F32_SMALL_GRID = 4 * 132
+F32_SMALL_GRID_PER_SM = 4
 F32_THREADS = 128
 F32_STAGED_FROM = 32  # depths from which the second product's weights go through shared memory
 # One row a thread (csrc/flash_bwd.cu: kRowThreads, kRowTile): the backward
@@ -196,19 +201,19 @@ class F32Plan:
     raised_smem: bool     # above 48 KB: the launch raises the kernel's limit first
 
 
-def f32_plan(kernel: str, bh: int, s: int, d: int) -> F32Plan:
+def f32_plan(kernel: str, bh: int, s: int, d: int, sms: int) -> F32Plan:
     """Launch plan of the f32 ``kernel`` for ``bh`` heads of ``s`` rows of
-    depth ``d``: the tile of :data:`F32_TILES` (or :data:`F32_ROWS`), the
-    blocks of the grid and the shared memory of one block, as the launch in
-    ``csrc/`` computes them.
+    depth ``d`` on a card of ``sms`` SMs: the tile of :data:`F32_TILES` (or
+    :data:`F32_ROWS`), the blocks of the grid and the shared memory of one
+    block, as the launch in ``csrc/`` computes them.
 
     The forward takes four (b, h) pairs a block where S fits a quarter of the
     block's rows, two where it fits half (at D = 128 one), as the bf16 plan
     does for its 64 rows, so that its rows are real queries; the tile of keys
     is then shared out among the heads too, and a pair of another head is
     masked. At D <= 16, where the grid of 64-query blocks is at most
-    :data:`F32_SMALL_GRID`, it takes :data:`F32_FWD_SMALL_TILES`. The backward
-    takes one head a block.
+    :data:`F32_SMALL_GRID_PER_SM` blocks an SM, it takes
+    :data:`F32_FWD_SMALL_TILES`. The backward takes one head a block.
 
     Shared memory (f32, micro-tile rows padded to D + 4 floats): the
     forward's query tile, two K and two V tiles and the staged P; the dQ
@@ -232,7 +237,8 @@ def f32_plan(kernel: str, bh: int, s: int, d: int) -> F32Plan:
                        cols_per_thread=cols, rows=rows, cols=cols, heads=1,
                        row_tiles=-(-s // rows), blocks=bh * -(-s // rows), smem_bytes=4 * floats,
                        raised_smem=False)
-    if kernel == "fwd" and d in F32_FWD_SMALL_TILES and bh * -(-s // 64) <= F32_SMALL_GRID:
+    if (kernel == "fwd" and d in F32_FWD_SMALL_TILES
+            and bh * -(-s // 64) <= F32_SMALL_GRID_PER_SM * sms):
         ri, cj = F32_FWD_SMALL_TILES[d]
     else:
         ri, cj = F32_TILES[kernel][d]
@@ -289,22 +295,6 @@ def _check_bf16_launch(scale: float, **tensors) -> None:
     _check_aligned(**tensors)
 
 
-@functools.cache
-def _lib(name: str) -> ctypes.CDLL:
-    """The kernel's library with its C signatures declared."""
-    lib = kernels.load(name)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    if name == "flash_fwd":
-        lib.afdm_flash_fwd.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_float, ci, ci, vp]
-        lib.afdm_flash_fwd.restype = ci
-    else:
-        lib.afdm_flash_bwd.argtypes = [vp] * 13 + [ci, ci, ci, ctypes.c_float, ci, vp]
-        lib.afdm_flash_bwd.restype = ci
-    lib.afdm_cuda_error_string.argtypes = [ci]
-    lib.afdm_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check(q, k, v) -> None:
     if q.dim() != 4:
         raise ValueError(f"expected (B, H, S, D) tensors, got shape {tuple(q.shape)}")
@@ -334,37 +324,25 @@ def flash_attention_fwd(q, k, v, scale=None, with_stats=False):
     that of :func:`f32_plan`); anything it cannot take raises. Returns
     ``out``, or ``(out, m, Σ)`` with ``with_stats``.
     """
-    if q.device.type == "cpu":
+    if not kernels.on_card(q, "flash_attention_fwd"):
         return attention_reference(q, k, v, scale, with_stats)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cpu or cuda, got {q.device}")
     _check(q, k, v)
     b, h, s, d = q.shape
     scale = _default_scale(q, scale)
     bf16 = q.dtype == torch.bfloat16
+    sms = kernels.sm_count(q.device.index)
     if bf16:
         _check_bf16_launch(scale, q=q, k=k, v=v)
         heads = fwd_plan(b * h, s, d).heads_per_block
     else:
         _check_aligned(q=q, k=k, v=v)
-        heads = f32_plan("fwd", b * h, s, d).heads
+        heads = f32_plan("fwd", b * h, s, d, sms).heads
     out = torch.empty_like(q)
     m = ssum = None
     if with_stats:
         m = torch.empty((b * h, 1, s), dtype=torch.float32, device=q.device)
         ssum = torch.empty_like(m)
-    lib = _lib("flash_fwd")
-    with torch.cuda.device(q.device):  # a no-op when q is on the current device
-        err = lib.afdm_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            m.data_ptr() if with_stats else None,
-            ssum.data_ptr() if with_stats else None,
-            b * h, s, d, scale, int(bf16), heads,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_fwd launch failed: {lib.afdm_cuda_error_string(err).decode()}")
+    _FWD(q.device, q, k, v, out, m, ssum, b * h, s, d, scale, int(bf16), heads, sms)
     flash_attention_fwd.launches += 1
     return (out, m, ssum) if with_stats else out
 
@@ -421,10 +399,8 @@ def flash_attention_bwd(q, k, v, out, m, ssum, g, scale=None):
     """
     if (m is None) != (ssum is None):
         raise ValueError("m and ssum come together: pass both or neither")
-    if q.device.type == "cpu":
+    if not kernels.on_card(q, "flash_attention_bwd"):
         return attention_backward_reference(q, k, v, out, m, ssum, g, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, got {q.device}")
     g = g.contiguous()
     scale = _default_scale(q, scale)
     if m is None:
@@ -439,18 +415,8 @@ def flash_attention_bwd(q, k, v, out, m, ssum, g, scale=None):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     scratch = [torch.empty(shape, dtype=dt, device=q.device)
                for shape, dt in bwd_scratch_shapes(b * h, s, d, q.dtype).values()]
-    ptrs = [t.data_ptr() for t in scratch] + [None] * (3 - len(scratch))
-    lib = _lib("flash_bwd")
-    with torch.cuda.device(q.device):
-        err = lib.afdm_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
-            m.data_ptr(), ssum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *ptrs, b * h, s, d, scale, int(bf16),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_bwd launch failed: {lib.afdm_cuda_error_string(err).decode()}")
+    scratch += [None] * (3 - len(scratch))
+    _BWD(q.device, q, k, v, out, g, m, ssum, dq, dk, dv, *scratch, b * h, s, d, scale, int(bf16))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -25,15 +25,14 @@ C = 32 to 512), and the wrappers raise on what they do not take.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
+from aliasfree_diffusion_models_pytorch_tpu_torch.utils.kernels import F32, I64, INT, PTR
 
 __all__ = [
     "LN_MAX_CHANNELS",
@@ -67,6 +66,12 @@ LN_WAVE_TILES = 1536
 # The backward's tiles hold at most this many tokens, and at least two 16-byte
 # words along S where it writes dx channel-major (whole 32-byte sectors).
 LN_MAX_TW_BWD = 32
+
+# The C entry point (csrc/layer_norm.cu), each argument before the stream: x, dy, weight, bias,
+# out, mean, rstd, partials; partial_blocks; dweight, dbias; rows, tokens; channels, lpr, cpl,
+# tw, swz_stride, swz_mask, layout, bf16_io; eps; sms.
+_LAYER_NORM = kernels.Entry("layer_norm", [PTR] * 8 + [INT] + [PTR] * 2 + [I64] * 2 + [INT] * 8
+                            + [F32, INT])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,18 +148,6 @@ def token_layout(x: torch.Tensor) -> str | None:
     return None
 
 
-@functools.cache
-def _ln_lib() -> ctypes.CDLL:
-    lib = kernels.load("layer_norm")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.afdm_layer_norm.argtypes = ([vp] * 8 + [ci] + [vp] * 2 + [ctypes.c_longlong] * 2
-                                    + [ci] * 8 + [ctypes.c_float, ci, vp])
-    lib.afdm_layer_norm.restype = ci
-    lib.afdm_cuda_error_string.argtypes = [ci]
-    lib.afdm_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t itself where its storage starts on a 16-byte boundary, else a copy
     that does (with t's strides)."""
@@ -164,8 +157,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def _check(x: torch.Tensor, weight: torch.Tensor, others: tuple[torch.Tensor, ...],
            fn: str) -> str:
     """x's layout, after checking what the kernels take of x and the parameters."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{fn} runs on cuda, got {x.device}")
+    kernels.on_card(x, fn, cpu=False)
     layout = token_layout(x)
     if layout is None:
         raise ValueError(f"{fn}: x must be (n, S, C) in row order or the transposed view of a "
@@ -180,17 +172,11 @@ def _check(x: torch.Tensor, weight: torch.Tensor, others: tuple[torch.Tensor, ..
 def _launch(x, dy, weight, bias, out, mean, rstd, partials, dweight, dbias, layout, plan,
             eps) -> None:
     n, s, c = x.shape
-    lib = _ln_lib()
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(x.device):
-        err = lib.afdm_layer_norm(
-            ptr(x), ptr(dy), ptr(weight), ptr(bias), ptr(out), ptr(mean), ptr(rstd),
-            ptr(partials), 0 if partials is None else partials.shape[0], ptr(dweight),
-            ptr(dbias), n * s, s, c, plan.lpr, plan.cpl, plan.tw, plan.swz_stride, plan.swz_mask,
-            int(layout == "channels"), int(x.dtype == torch.bfloat16), eps,
-            kernels.sm_count(x.device.index), torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"layer_norm launch failed: {lib.afdm_cuda_error_string(err).decode()}")
+    _LAYER_NORM(x.device, x, dy, weight, bias, out, mean, rstd, partials,
+                0 if partials is None else partials.shape[0], dweight, dbias, n * s, s, c,
+                plan.lpr, plan.cpl, plan.tw, plan.swz_stride, plan.swz_mask,
+                int(layout == "channels"), int(x.dtype == torch.bfloat16), eps,
+                kernels.sm_count(x.device.index))
 
 
 def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

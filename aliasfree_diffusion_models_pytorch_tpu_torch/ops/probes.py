@@ -22,14 +22,13 @@ A CPU tensor takes the plain version (:func:`exp_chain_plain`,
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 import math
 
 import torch
 
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
+from aliasfree_diffusion_models_pytorch_tpu_torch.utils.kernels import I64, INT, PTR
 
 __all__ = ["OPS", "exp_chain", "exp_chain_plain", "qk_rowsum", "qk_rowsum_plain", "qk_plan",
            "QkPlan", "block_diagonal_pack", "QK_HEAD_DIMS", "QK_SEQ_MULTIPLE"]
@@ -37,6 +36,12 @@ __all__ = ["OPS", "exp_chain", "exp_chain_plain", "qk_rowsum", "qk_rowsum_plain"
 # The op's index here is the kernel's `op` argument (csrc/exp_chain.cu: enum Op).
 OPS = ("copy", "mul2", "poly4", "exp", "exp2", "fastexp2", "tanh", "erf", "rsqrt1p",
        "logistic", "exp_fast")
+
+# The C entry points, each argument before the stream. exp_chain: x, out; n; op, chain,
+# subtract, sms. qk_rowsum: k, qt, out; n, s, d and the plan's keys_per_tile, acc_keys,
+# queries_per_block, stages, swizzle, smem_bytes, grid.
+_EXP_CHAIN = kernels.Entry("exp_chain", [PTR, PTR, I64, INT, INT, INT, INT])
+_QK_ROWSUM = kernels.Entry("qk_rowsum", [PTR] * 3 + [INT] * 10)
 
 LOG2E = float(math.log2(math.e))
 _POLY4 = (0.5, 0.25, 0.125, 0.0625)
@@ -96,22 +101,6 @@ def exp_chain_plain(x: torch.Tensor, op: str, chain: int = 16,
     return acc.clone() if acc is x else acc
 
 
-@functools.cache
-def _lib(name: str) -> ctypes.CDLL:
-    """The kernel's library with its C signatures declared."""
-    lib = kernels.load(name)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    if name == "exp_chain":
-        lib.afdm_exp_chain.argtypes = [vp, vp, ctypes.c_longlong, ci, ci, ci, vp]
-        lib.afdm_exp_chain.restype = ci
-    else:
-        lib.afdm_qk_rowsum.argtypes = [vp, vp, vp] + [ci] * 10 + [vp]
-        lib.afdm_qk_rowsum.restype = ci
-    lib.afdm_cuda_error_string.argtypes = [ci]
-    lib.afdm_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def exp_chain(x: torch.Tensor, op: str, chain: int = 16, subtract: bool = True) -> torch.Tensor:
     """``chain`` applications of ``acc = op(acc) − 1`` per element of the f32
     tensor ``x``; returns a new tensor of the same shape.
@@ -126,10 +115,8 @@ def exp_chain(x: torch.Tensor, op: str, chain: int = 16, subtract: bool = True) 
     chain = int(chain)
     if chain < 0:
         raise ValueError(f"chain must be >= 0, got {chain}")
-    if x.device.type == "cpu":
+    if not kernels.on_card(x, "exp_chain"):
         return exp_chain_plain(x, op, chain, subtract)
-    if x.device.type != "cuda":
-        raise ValueError(f"exp_chain runs on cpu or cuda, got {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"exp_chain takes float32, got {x.dtype}")
     if not x.is_contiguous():
@@ -139,14 +126,8 @@ def exp_chain(x: torch.Tensor, op: str, chain: int = 16, subtract: bool = True) 
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned (a view into the middle of a tensor is not)")
     out = torch.empty_like(x)
-    lib = _lib("exp_chain")
-    with torch.cuda.device(x.device):
-        err = lib.afdm_exp_chain(
-            x.data_ptr(), out.data_ptr(), x.numel(), OPS.index(op), chain, int(bool(subtract)),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"exp_chain launch failed: {lib.afdm_cuda_error_string(err).decode()}")
+    _EXP_CHAIN(x.device, x, out, x.numel(), OPS.index(op), chain, int(bool(subtract)),
+               kernels.sm_count(x.device.index))
     exp_chain.launches += 1
     return out
 
@@ -167,9 +148,6 @@ QK_ALIGN = 1024    # every stage starts on this boundary (a swizzled tile's)
 # Registers a thread starts with, by blocks an SM (csrc/qk_rowsum.cu: Registers):
 # the setmaxnreg hand-over adds up only at these counts, and the launch refuses others.
 QK_LAUNCH_REGS = {1: 168, 2: 80}
-# The constant that marks a refused tensor map in the kernel's error code
-# (csrc/qk_rowsum.cu: kTensorMapError).
-QK_TENSOR_MAP_ERROR = 100000
 # The plain version holds the (chunk, s, s) f32 logits in memory: it walks n in
 # chunks that keep them under this many bytes.
 PLAIN_LOGITS_BYTES = 2**30
@@ -259,31 +237,20 @@ def qk_rowsum(k: torch.Tensor, qt: torch.Tensor) -> torch.Tensor:
     raises.
     """
     _check_qk(k, qt)
-    if k.device.type == "cpu":
+    if not kernels.on_card(k, "qk_rowsum"):
         return qk_rowsum_plain(k, qt)
-    if k.device.type != "cuda":
-        raise ValueError(f"qk_rowsum runs on cpu or cuda, got {k.device}")
     n, s, d = k.shape
     if k.dtype != torch.bfloat16 or qt.dtype != torch.bfloat16:
         raise TypeError(f"qk_rowsum takes bfloat16, got {k.dtype} and {qt.dtype}")
-    plan = qk_plan(n, s, d, torch.cuda.get_device_properties(k.device).multi_processor_count)
+    plan = qk_plan(n, s, d, kernels.sm_count(k.device.index))
     if not (k.is_contiguous() and qt.is_contiguous()):
         raise ValueError("k and qt must be contiguous")
     if k.data_ptr() % 16 or qt.data_ptr() % 16:  # TMA's base addresses
         raise ValueError("k and qt must be 16-byte aligned (a view into the middle of a tensor "
                          "is not)")
     out = torch.empty((n, 1, s), dtype=torch.float32, device=k.device)
-    lib = _lib("qk_rowsum")
-    with torch.cuda.device(k.device):
-        err = lib.afdm_qk_rowsum(
-            k.data_ptr(), qt.data_ptr(), out.data_ptr(), n, s, d, plan.keys_per_tile,
-            plan.acc_keys, plan.queries_per_block, plan.stages, plan.swizzle, plan.smem_bytes,
-            plan.grid, torch.cuda.current_stream(k.device).cuda_stream)
-    if err != 0:
-        detail = (f" (CUresult {err - QK_TENSOR_MAP_ERROR})" if err >= QK_TENSOR_MAP_ERROR
-                  else "")
-        raise RuntimeError(
-            f"qk_rowsum launch failed: {lib.afdm_cuda_error_string(err).decode()}{detail}")
+    _QK_ROWSUM(k.device, k, qt, out, n, s, d, plan.keys_per_tile, plan.acc_keys,
+               plan.queries_per_block, plan.stages, plan.swizzle, plan.smem_bytes, plan.grid)
     qk_rowsum.launches += 1
     return out
 

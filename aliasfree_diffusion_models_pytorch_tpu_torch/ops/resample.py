@@ -37,7 +37,6 @@ hold them as buffers already on the right device and dtype.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 import os
@@ -47,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
+from aliasfree_diffusion_models_pytorch_tpu_torch.utils.kernels import I64, INT, PTR
 
 __all__ = [
     "same_pad",
@@ -56,6 +56,7 @@ __all__ = [
     "filtered_gelu",
     "fg_impl",
     "fg_impl_override",
+    "capture_key",
     "gelu_exact",
     "gelu_mode",
     "gelu_form",
@@ -194,15 +195,9 @@ def gelu_poly(x: torch.Tensor) -> torch.Tensor:
     return (xf * (0.5 + xc * p)).to(x.dtype)
 
 
-@functools.cache
-def _pg_lib() -> ctypes.CDLL:
-    lib = kernels.load("plain_gelu")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.afdm_plain_gelu.argtypes = [vp, vp, vp, ctypes.c_longlong, ci, ci, vp]
-    lib.afdm_plain_gelu.restype = ci
-    lib.afdm_cuda_error_string.argtypes = [ci]
-    lib.afdm_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+# The C entry point (csrc/plain_gelu.cu), each argument before the stream: x, g, y; n; the
+# GELU form's index in FG_GELU_FORMS, sms.
+_PLAIN_GELU = kernels.Entry("plain_gelu", [PTR] * 3 + [I64, INT, INT])
 
 
 def _dense(x: torch.Tensor) -> bool:
@@ -238,14 +233,8 @@ def _pg_launch(x: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    lib = _pg_lib()
-    with torch.cuda.device(x.device):
-        err = lib.afdm_plain_gelu(
-            x.data_ptr(), None if g is None else g.data_ptr(), y.data_ptr(), x.numel(),
-            FG_GELU_FORMS.index(form), kernels.sm_count(x.device.index),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"plain_gelu launch failed: {lib.afdm_cuda_error_string(err).decode()}")
+    _PLAIN_GELU(x.device, x, g, y, x.numel(), FG_GELU_FORMS.index(form),
+                kernels.sm_count(x.device.index))
     return y
 
 
@@ -254,9 +243,8 @@ def plain_gelu_fwd(x: torch.Tensor) -> torch.Tensor:
     dense and non-overlapping (any order of its dimensions); a CPU tensor
     takes :func:`gelu_poly`. ``launches`` counts the calls that reached the
     card."""
-    if x.device.type == "cpu":
+    if not kernels.on_card(x, "plain_gelu_fwd"):
         return gelu_poly(x)
-    _check_device(x, "plain_gelu_fwd")
     y = _pg_launch(x, None)
     plain_gelu_fwd.launches += int(x.numel() > 0)
     return y
@@ -269,11 +257,10 @@ def plain_gelu_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dx of the bf16 polynomial GELU for the cotangent ``g`` (laid out as
     x): the backward kernel on a CUDA tensor; on a CPU tensor autograd of
     :func:`gelu_poly`. ``launches`` counts the calls that reached the card."""
-    if x.device.type == "cpu":
+    if not kernels.on_card(x, "plain_gelu_bwd"):
         with torch.enable_grad():
             xg = x.detach().requires_grad_()
             return torch.autograd.grad(gelu_poly(xg), xg, g)[0]
-    _check_device(x, "plain_gelu_bwd")
     dx = _pg_launch(x, g)
     plain_gelu_bwd.launches += int(x.numel() > 0)
     return dx
@@ -306,6 +293,13 @@ def fg_impl_override() -> str | None:
     A captured step keys its CUDA graph on it: the form is fixed at capture."""
     env = os.environ.get("AFDM_FG_IMPL")
     return env if env in ("conv", "phases") else None
+
+
+def capture_key() -> tuple:
+    """The numerics knobs a captured train step or sampler keys its CUDA
+    graphs on (:func:`fg_impl_override`, :func:`gelu_mode`): they are read
+    while the graph is captured, so a changed knob needs a graph of its own."""
+    return fg_impl_override(), gelu_mode()
 
 
 def fg_impl(x: torch.Tensor, k: int, factor: int = 2) -> str:
@@ -421,7 +415,9 @@ FG_SIDES = (4, 8, 16, 32, 64, 128)
 FG_MAX_ROWS = 16
 FG_MIN_ROWS = 2
 # Threads a call should have before its strips are made shorter: about what
-# the card holds at once (132 SMs × 512 threads at the pair's register counts).
+# an H100 SXM holds at once (132 SMs × 512 threads at the pair's register
+# counts, rounded down). A constant, not kernels.sm_count × 512: that would
+# change the plans the pair was tuned at.
 FG_TARGET_THREADS = 65536
 # The kernels' GELU forms, by the index the C interfaces take (csrc/gelu.cuh:
 # kGeluPoly15, kGeluPoly13, kGeluErf); the filtered GELU's f32 takes "erf"
@@ -467,15 +463,9 @@ def fg_plan(planes: int, h: int, w: int, k: int, aligned: bool = True) -> FgPlan
                   strips_y=strips_y, threads=threads, blocks=-(-threads // FG_THREADS))
 
 
-@functools.cache
-def _fg_lib() -> ctypes.CDLL:
-    lib = kernels.load("filtered_gelu")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.afdm_filtered_gelu.argtypes = [vp] * 5 + [ci] * 9 + [vp]
-    lib.afdm_filtered_gelu.restype = ci
-    lib.afdm_cuda_error_string.argtypes = [ci]
-    lib.afdm_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+# The C entry point (csrc/filtered_gelu.cu), each argument before the stream: x, g, up, down,
+# y; planes, h, w, k, rows, cols, side, is_bf16, the GELU form's index in FG_GELU_FORMS.
+_FILTERED_GELU = kernels.Entry("filtered_gelu", [PTR] * 5 + [INT] * 9)
 
 
 def _fg_launch(x, g, up, down) -> tuple[torch.Tensor, FgPlan]:
@@ -502,22 +492,9 @@ def _fg_launch(x, g, up, down) -> tuple[torch.Tensor, FgPlan]:
     y = torch.empty_like(x)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, g, y) if t is not None)
     plan = fg_plan(n * c, h, w, k, aligned)
-    lib = _fg_lib()
-    with torch.cuda.device(x.device):
-        err = lib.afdm_filtered_gelu(
-            x.data_ptr(), None if g is None else g.data_ptr(), up.data_ptr(), down.data_ptr(),
-            y.data_ptr(), n * c, h, w, k, plan.rows, plan.cols, plan.side,
-            int(x.dtype == torch.bfloat16), FG_GELU_FORMS.index(gelu_form(x.dtype)),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"filtered_gelu launch failed: "
-                           f"{lib.afdm_cuda_error_string(err).decode()}")
+    _FILTERED_GELU(x.device, x, g, up, down, y, n * c, h, w, k, plan.rows, plan.cols, plan.side,
+                   int(x.dtype == torch.bfloat16), FG_GELU_FORMS.index(gelu_form(x.dtype)))
     return y, plan
-
-
-def _check_device(x: torch.Tensor, fn: str) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{fn} runs on cpu or cuda, got {x.device}")
 
 
 def filtered_gelu_fwd(x: torch.Tensor, up_taps, down_taps) -> torch.Tensor:
@@ -525,9 +502,8 @@ def filtered_gelu_fwd(x: torch.Tensor, up_taps, down_taps) -> torch.Tensor:
     or bf16; taps k × k in x's dtype and device, k odd up to 7); a CPU tensor
     takes :func:`filtered_gelu_phases`. ``launches`` counts the calls that
     reached the card, ``last_plan`` is the plan the last of them launched."""
-    if x.device.type == "cpu":
+    if not kernels.on_card(x, "filtered_gelu_fwd"):
         return filtered_gelu_phases(x, up_taps, down_taps)
-    _check_device(x, "filtered_gelu_fwd")
     y, filtered_gelu_fwd.last_plan = _fg_launch(x, None, up_taps, down_taps)
     filtered_gelu_fwd.launches += 1
     return y
@@ -542,11 +518,10 @@ def filtered_gelu_bwd(x: torch.Tensor, up_taps, down_taps, g: torch.Tensor) -> t
     a CUDA tensor, which recomputes the phases from x; on a CPU tensor autograd
     of :func:`filtered_gelu_phases`. ``launches`` counts the calls that
     reached the card, ``last_plan`` is the plan the last of them launched."""
-    if x.device.type == "cpu":
+    if not kernels.on_card(x, "filtered_gelu_bwd"):
         with torch.enable_grad():
             xg = x.detach().requires_grad_()
             return torch.autograd.grad(filtered_gelu_phases(xg, up_taps, down_taps), xg, g)[0]
-    _check_device(x, "filtered_gelu_bwd")
     dx, filtered_gelu_bwd.last_plan = _fg_launch(x, g, up_taps, down_taps)
     filtered_gelu_bwd.launches += 1
     return dx

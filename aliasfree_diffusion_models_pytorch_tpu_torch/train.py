@@ -93,7 +93,7 @@ from aliasfree_diffusion_models_pytorch_tpu_torch.config import TrainConfig
 from aliasfree_diffusion_models_pytorch_tpu_torch.data import Dataloader, PrefetchLoader
 from aliasfree_diffusion_models_pytorch_tpu_torch.diffusion import Diffusion
 from aliasfree_diffusion_models_pytorch_tpu_torch.models.unet import UNet, build_model, param_count
-from aliasfree_diffusion_models_pytorch_tpu_torch.ops.resample import fg_impl_override, gelu_mode
+from aliasfree_diffusion_models_pytorch_tpu_torch.ops.resample import capture_key
 from aliasfree_diffusion_models_pytorch_tpu_torch.parallel import (
     Mesh,
     Sharding,
@@ -525,7 +525,7 @@ def make_train_step(model: UNet, config: TrainConfig, diffusion: Diffusion, *,
                                  "of its first calls: make a new step for another state")
             bound_state = state
         key = (tuple(batch.shape), labels is None, n_real is None, t is None, noise is None,
-               keep is None, fg_impl_override(), gelu_mode())
+               keep is None, capture_key())
         inp = signatures.get(key)
         if inp is None:
             inp = signatures[key] = _StepInputs(batch, labels, n_real, t, noise, keep, device,

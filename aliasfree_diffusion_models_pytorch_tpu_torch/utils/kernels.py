@@ -11,10 +11,17 @@ all started together). Nothing is built or loaded while a CUDA graph is
 being captured: :func:`load` raises there (``utils/graphs.py`` runs every
 step once eagerly before it captures it).
 
-Every wrapper that launches a kernel counts its launches in its own
-``launches`` attribute and is listed in :data:`COUNTED`
-(:func:`count_launches`), so that a CUDA graph can add the launches it
-captured once per replay.
+This module is the one seam between the op modules and the libraries. Each
+library exports one entry point, ``int afdm_<name>(..., void* stream)``
+(``csrc/entry.cuh``), which an op module declares once as an :class:`Entry`
+and calls with tensors and numbers: the entry sets the C signature, launches
+under the tensors' device on its current stream, and turns a non-zero return
+into a ``RuntimeError`` with the decoded error. :func:`on_card` is the wrappers'
+one device check, :func:`sm_count` the one place the SM count is read, for
+every launcher that sizes by it. Every wrapper that launches a kernel counts
+its launches in its own ``launches`` attribute and is listed in
+:data:`COUNTED` (:func:`count_launches`), so that a CUDA graph can add the
+launches it captured once per replay.
 """
 
 from __future__ import annotations
@@ -112,6 +119,11 @@ def build(names=None) -> list[BuildResult]:
 
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# C argument kinds of the entry points (csrc/entry.cuh): pointers, int, long long, float.
+PTR, INT, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# A return at or above this is TENSOR_MAP_ERROR + the CUresult of a refused TMA
+# tensor map (csrc/entry.cuh: kTensorMapError); below it, a cudaError_t.
+TENSOR_MAP_ERROR = 100000
 
 # The wrappers whose ``launches`` attribute counts their kernel launches.
 COUNTED: list = []
@@ -145,3 +157,52 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _LOADED[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def on_card(x: torch.Tensor, fn: str, cpu: bool = True) -> bool:
+    """Whether ``fn`` launches its kernel for ``x``: True on a CUDA tensor;
+    False on a CPU tensor where ``fn`` has a plain version (``cpu``); else
+    raises ``ValueError``."""
+    if x.device.type == "cuda":
+        return True
+    if cpu and x.device.type == "cpu":
+        return False
+    raise ValueError(f"{fn} runs on {'cpu or cuda' if cpu else 'cuda'}, got {x.device}")
+
+
+class Entry:
+    """The entry point ``afdm_<name>`` of the kernel library ``name``, whose
+    arguments before the stream are of the C kinds ``argtypes`` (:data:`PTR`,
+    :data:`INT`, :data:`I64`, :data:`F32`).
+
+    ``entry(device, *args)`` loads the library at its first call (through
+    :func:`load`, so not under CUDA-graph capture), passes a tensor as its
+    data pointer and None as a null one, launches under ``device`` on its
+    current stream, and raises ``RuntimeError("<name> launch failed: ...")``
+    on a non-zero return.
+    """
+
+    def __init__(self, name: str, argtypes):
+        self.name = name
+        self.argtypes = tuple(argtypes)
+        self._fn = self._error = None
+
+    def _bind(self) -> None:
+        lib = load(self.name)
+        fn = getattr(lib, f"afdm_{self.name}")
+        fn.argtypes, fn.restype = [*self.argtypes, PTR], INT
+        lib.afdm_cuda_error_string.argtypes = [INT]
+        lib.afdm_cuda_error_string.restype = ctypes.c_char_p
+        self._fn, self._error = fn, lib.afdm_cuda_error_string
+
+    def __call__(self, device: torch.device, *args) -> None:
+        if self._fn is None:
+            self._bind()
+        args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+        with torch.cuda.device(device):  # a no-op when device is the current one
+            err = self._fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            detail = (f" (CUresult {err - TENSOR_MAP_ERROR})" if err >= TENSOR_MAP_ERROR
+                      else "")
+            raise RuntimeError(
+                f"{self.name} launch failed: {self._error(err).decode()}{detail}")

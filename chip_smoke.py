@@ -328,11 +328,14 @@ def check(cond: bool, what: str) -> None:
 
 def kernel_label(mangled: str) -> str:
     """``flash_bwd_mma_kernel<8>`` from the mangled name ptxas prints: the
-    length-prefixed identifier that ends in ``_kernel`` (the anonymous
-    namespace before it carries a hash with digits of its own), then its
-    integer, bool and float template arguments."""
+    last length-prefixed identifier that ends in ``_kernel``, then its
+    integer, bool and float template arguments. The anonymous namespace
+    before it carries hashes of the source, whose digits can read as a
+    length prefix too (``…_cu_36bca9c128flash_bwd_dq_f32_rows_kernel``), so
+    the identifier that starts last wins."""
     import re
 
+    label = mangled[:60]
     for m in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
         digits = m.group()
         for i in range(len(digits)):  # the length is some suffix of the digit run
@@ -340,12 +343,13 @@ def kernel_label(mangled: str) -> str:
             name = mangled[m.end():m.end() + n]
             if len(name) == n and name.endswith("_kernel"):
                 t = re.match(r"I((?:L[a-z]\d+E|f|13__nv_bfloat16)+)E", mangled[m.end() + n:])
-                if t is None:
-                    return name
-                args = [a.group(1) or ("float" if a.group() == "f" else "bf16")
-                        for a in re.finditer(r"L[a-z](\d+)E|f|13__nv_bfloat16", t.group(1))]
-                return f"{name}<{', '.join(args)}>"
-    return mangled[:60]
+                label = name
+                if t is not None:
+                    args = [a.group(1) or ("float" if a.group() == "f" else "bf16")
+                            for a in re.finditer(r"L[a-z](\d+)E|f|13__nv_bfloat16", t.group(1))]
+                    label = f"{name}<{', '.join(args)}>"
+                break
+    return label
 
 
 def ptxas_report(log_text: str) -> list[dict]:
@@ -969,6 +973,8 @@ def phase_exp_chain(kp, probes) -> dict:
 
 def phase_qk_rowsum(kp) -> dict:
     """qk_rowsum vs its plain version at the probe's three shapes."""
+    from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
+
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     k8 = qt8 = None
@@ -1020,7 +1026,7 @@ def phase_qk_rowsum(kp) -> dict:
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         # the plan's figures, not measured: its wgmmas' FLOPs (d = 8 padded to depth 16)
-        plan = kp.qk_plan(n, s, d, torch.cuda.get_device_properties(0).multi_processor_count)
+        plan = kp.qk_plan(n, s, d, kernels.sm_count(0))
         log(f"  {name:15s} (n={n}, s={s}, d={d}) err {row['max_abs_err']:.1e} "
             f"({row['max_rel_err']:.1e} of max)  device ms: kernel {row['ms']:.4f} "
             f"({row['tflops']:.1f} TFLOP/s of the bound's {row['flops']:.4g} FLOPs; "

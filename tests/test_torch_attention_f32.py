@@ -31,6 +31,7 @@ from aliasfree_diffusion_models_pytorch_tpu_torch.utils import kernels
 # The card's limits (chip_smoke.py: REL_TOL[f32], M_ATOL, SUM_RTOL).
 REL_TOL, M_ATOL, SUM_RTOL = 2e-5, 1e-5, 1e-4
 INT_MAX = 2**31 - 1
+H100_SMS = 132  # an H100 SXM's SMs: the card the plans here are pinned for
 
 # The runs whose attention shapes the plan must take: (image, base width,
 # batch or n), the four train steps of chip_smoke.py and the two sampling
@@ -89,7 +90,7 @@ def test_plan_at_every_main_path_shape(run):
     assert len(shapes) == 6
     for bh, s, d in shapes:
         for kernel in fa.F32_KERNELS:
-            plan = fa.f32_plan(kernel, bh, s, d)
+            plan = fa.f32_plan(kernel, bh, s, d, H100_SMS)
             assert _kernel_takes(plan, bh, s, d), (run, kernel, bh, s, d, plan)
             assert plan.smem_bytes <= fa.SMEM_MAX, (run, kernel, plan)
             assert plan.raised_smem == (plan.smem_bytes > fa.SMEM_DEFAULT), plan
@@ -113,8 +114,10 @@ def test_tile_table_is_the_one_in_the_sources():
             struct + r"<(\d+)> \{ static constexpr int kRI = (\d+), kCJ = (\d+); \}", src)}
         assert found == table, struct
     src = (kernels.CSRC / kernels.SOURCES["flash_fwd"]).read_text()
-    assert re.search(r"constexpr long long kSmallGrid = 4 \* 132;", src)
-    assert fa.F32_SMALL_GRID == 4 * 132
+    # the small grid is a number of blocks an SM, times the card's SM count from the launch
+    per_sm = re.search(r"constexpr long long kSmallGridPerSm = (\d+);", src)
+    assert per_sm and int(per_sm.group(1)) == fa.F32_SMALL_GRID_PER_SM == 4
+    assert "<= kSmallGridPerSm * sms)" in src
     src = (kernels.CSRC / kernels.SOURCES["flash_bwd"]).read_text()
     rows = {name: int(n) for name, n in re.findall(r"constexpr int (kRow\w+) = (\d+);", src)}
     assert rows == {"kRowThreads": fa.F32_ROWS["threads"], "kRowTile": fa.F32_ROWS["tile"]}
@@ -126,22 +129,22 @@ def test_tile_table_is_the_one_in_the_sources():
 
 @pytest.mark.parametrize("kernel", fa.F32_KERNELS)
 def test_plan_shared_memory_and_heads(kernel):
-    smem = {d: fa.f32_plan(kernel, 64, 1024, d).smem_bytes for d in fa.HEAD_DIMS}
+    smem = {d: fa.f32_plan(kernel, 64, 1024, d, H100_SMS).smem_bytes for d in fa.HEAD_DIMS}
     assert all(b <= fa.SMEM_MAX for b in smem.values())
     # f32 rows, padded to D + 4 floats, are whole 16-byte cp.async chunks
     assert all((d + 4) * 4 % fa.ALIGN == 0 for d in fa.HEAD_DIMS)
-    heads = {s: fa.f32_plan(kernel, 64, s, 32).heads for s in (16, 32, 64)}
+    heads = {s: fa.f32_plan(kernel, 64, s, 32, H100_SMS).heads for s in (16, 32, 64)}
     assert heads == ({16: 4, 32: 2, 64: 1} if kernel == "fwd" else {16: 1, 32: 1, 64: 1})
     # where it is 64 rows, the forward's tile takes the bf16 plan's heads
     for s in (16, 32, 64, 200):
-        plan = fa.f32_plan(kernel, 1024, s, 32)
+        plan = fa.f32_plan(kernel, 1024, s, 32, H100_SMS)
         if kernel == "fwd":
             assert plan.heads == fa.fwd_plan(1024, s, 32).heads_per_block
-    assert fa.f32_plan(kernel, 64, 16, 128).heads == 1
+    assert fa.f32_plan(kernel, 64, 16, 128, H100_SMS).heads == 1
     with pytest.raises(ValueError):
-        fa.f32_plan(kernel, 64, 16, 4)
+        fa.f32_plan(kernel, 64, 16, 4, H100_SMS)
     with pytest.raises(ValueError):
-        fa.f32_plan("bwd", 64, 16, 8)
+        fa.f32_plan("bwd", 64, 16, 8, H100_SMS)
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +237,7 @@ def _written(plan, bh, s, d):
 @pytest.mark.parametrize("kernel", fa.F32_KERNELS)
 def test_every_pair_formed_once_and_every_output_written_once(kernel, s, d):
     bh = 5 if s <= 32 else 2  # five heads: a partial group of heads a block at S <= 32
-    plan = fa.f32_plan(kernel, bh, s, d)
+    plan = fa.f32_plan(kernel, bh, s, d, H100_SMS)
     counts, inside, row_has_key = _formed_pairs(plan, bh, s)
     assert counts.min() == 1 and counts.max() == 1, plan
     assert inside and row_has_key, plan
@@ -245,10 +248,12 @@ def test_every_pair_formed_once_and_every_output_written_once(kernel, s, d):
 @pytest.mark.parametrize("d", [8, 16])
 @pytest.mark.parametrize("s,bh", [(16, 601), (200, 140)])
 def test_forward_on_a_large_grid_forms_every_pair_once(s, bh, d):
-    """Beyond F32_SMALL_GRID blocks the forward at D <= 16 takes its larger tile."""
-    plan = fa.f32_plan("fwd", bh, s, d)
+    """Beyond F32_SMALL_GRID_PER_SM blocks an SM the forward at D <= 16 takes
+    its larger tile."""
+    plan = fa.f32_plan("fwd", bh, s, d, H100_SMS)
     assert (plan.rows_per_thread, plan.cols_per_thread) == fa.F32_TILES["fwd"][d]
-    assert fa.f32_plan("fwd", bh // 8, s, d).rows_per_thread == fa.F32_FWD_SMALL_TILES[d][0]
+    small = fa.f32_plan("fwd", bh // 8, s, d, H100_SMS)
+    assert small.rows_per_thread == fa.F32_FWD_SMALL_TILES[d][0]
     counts, inside, row_has_key = _formed_pairs(plan, bh, s)
     assert counts.min() == 1 and counts.max() == 1, plan
     assert inside and row_has_key, plan

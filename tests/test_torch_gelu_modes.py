@@ -188,3 +188,27 @@ def test_sampler_is_made_per_mode(monkeypatch):
         d.sample_ddim(model, n=1, image_channels=3, generator=torch.Generator().manual_seed(0),
                       steps=2)
     assert len(tdiffusion._SAMPLERS[model]) == 3
+
+
+@pytest.mark.parametrize("knob,value", [("AFDM_GELU", "poly13"), ("AFDM_FG_IMPL", "conv")])
+def test_sampler_captures_a_graph_of_its_own_per_knob(monkeypatch, knob, value):
+    """A sampler made under a numerics knob is keyed on ``capture_key()`` and
+    is never the one made without it, nor made again when the knob returns."""
+    monkeypatch.delenv("AFDM_GELU", raising=False)
+    monkeypatch.delenv("AFDM_FG_IMPL", raising=False)
+    config = _config()
+    model = build_model(config, device="cpu")
+    d = tdiffusion.Diffusion(noise_steps=3, img_size=8, device="cpu")
+    keys = []
+    for setting in (None, value, None, value):
+        if setting is None:
+            monkeypatch.delenv(knob, raising=False)
+        else:
+            monkeypatch.setenv(knob, setting)
+        d.sample_ddim(model, n=1, image_channels=3, generator=torch.Generator().manual_seed(0),
+                      steps=2)
+        keys.append(tr.capture_key())
+    assert keys[1] != keys[0] and value in keys[1]
+    samplers = tdiffusion._SAMPLERS[model]
+    assert len(samplers) == 2
+    assert {key[-2] for key in samplers} == {keys[0], keys[1]}

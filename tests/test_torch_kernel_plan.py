@@ -104,7 +104,8 @@ def test_an_edited_shared_header_renames_every_library_that_may_include_it(tmp_p
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["attn_f32.cuh", "gelu.cuh", "mma_bf16.cuh", "sm90.cuh"]
+    assert [h.name for h in headers] == ["attn_f32.cuh", "entry.cuh", "gelu.cuh", "mma_bf16.cuh",
+                                         "sm90.cuh"]
     before = {name: kernels.library_path(name, csrc) for name in kernels.SOURCES}
     assert before == {name: kernels.library_path(name) for name in kernels.SOURCES}
     headers[0].write_text(headers[0].read_text() + "\n// edited\n")
@@ -134,7 +135,10 @@ def test_qk_plan_mirrors_the_kernel_source():
     assert int(consts["kConsumers"]) == kp.QK_WARPGROUPS
     assert int(consts["kRowTiles"]) == kp.QK_ROW_TILES
     assert int(consts["kAlign"]) == kp.QK_ALIGN
-    assert int(consts["kTensorMapError"]) == kp.QK_TENSOR_MAP_ERROR
+    entry = (kernels.CSRC / "entry.cuh").read_text()
+    assert int(re.search(r"constexpr int kTensorMapError = (\d+);", entry).group(1)) == \
+        kernels.TENSOR_MAP_ERROR
+    assert "afdm::kTensorMapError + static_cast<int>(res)" in src
     launch = {int(m[0]): int(m[1]) for m in re.findall(
         r"struct Registers<(\d+)> \{\s*static constexpr int kLaunch = (\d+),", src)}
     assert launch == kp.QK_LAUNCH_REGS
